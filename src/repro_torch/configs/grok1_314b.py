@@ -1,0 +1,18 @@
+"""grok-1-314b [moe]: 8 experts top-2.
+
+64L, d_model=6144, 48H (GQA kv=8), expert d_ff=32768, vocab=131072.
+[hf:xai-org/grok-1; unverified]
+"""
+from repro_torch.models.config import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    arch_id="grok1_314b",
+    family="moe",
+    n_layers=64,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    d_ff=32768,
+    vocab=131072,
+    moe=MoEConfig(n_experts=8, top_k=2, expert_d_ff=32768),
+)

@@ -1,0 +1,98 @@
+"""Model building blocks: the dense subset of ``repro.models.layers``.
+
+Elementwise and normalisation code is plain PyTorch; the two attention
+functions go through the kernels' wrappers, which launch the CUDA
+kernels for tensors on the GPU and take their plain versions for tensors
+on the CPU.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.decode_attention import decode_attention as _decode_kernel
+from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)
+
+
+# -- RoPE ------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, style: str) -> np.ndarray:
+    rot = head_dim if style == "full" else head_dim // 2
+    return 1.0 / theta ** (np.arange(0, rot, 2, dtype=np.float32) / rot)
+
+
+@functools.lru_cache(maxsize=32)
+def _freqs_on(head_dim: int, theta: float, style: str,
+              device: torch.device) -> torch.Tensor:
+    """``rope_freqs`` as a tensor on ``device``, copied there once rather
+    than at every layer of every step."""
+    return torch.from_numpy(rope_freqs(head_dim, theta, style)).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               style: str = "full") -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S).  Rotates
+    interleaved pairs (x[..., 0::2], x[..., 1::2]); ``style="half"``
+    rotates only the first half of D."""
+    d = x.shape[-1]
+    rot = d if style == "full" else d // 2
+    freqs = _freqs_on(d, theta, style, x.device)
+    ang = positions[..., None].float() * freqs                 # (..., S, rot/2)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    xr = x[..., :rot].float()
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    r1 = x1 * cos - x2 * sin
+    r2 = x1 * sin + x2 * cos
+    rotated = torch.stack([r1, r2], dim=-1).reshape(xr.shape).to(x.dtype)
+    if rot == d:
+        return rotated
+    return torch.cat([rotated, x[..., rot:]], dim=-1)
+
+
+# -- attention ---------------------------------------------------------------------
+
+
+def _expand_kv(k: torch.Tensor, n_q_heads: int) -> torch.Tensor:
+    """(B, T, Hkv, D) -> (B, T, Hq, D), each KV head repeated in place."""
+    hkv = k.shape[2]
+    if hkv == n_q_heads:
+        return k
+    return k.repeat_interleave(n_q_heads // hkv, dim=2)
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool, q_offset: int = 0) -> torch.Tensor:
+    """Flash attention, forward only.  q: (B, S, Hq, D); k, v: (B, T, Hkv,
+    D); GQA through the kernel's head mapping, no KV repeat in memory."""
+    return _flash_kernel(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     length: torch.Tensor | int) -> torch.Tensor:
+    """Single-position GQA attention against a KV cache.  q: (B, 1, Hq, D);
+    caches: (B, T, Hkv, D); ``length`` (scalar or (B,)) masks the valid
+    prefix."""
+    return _decode_kernel(q, k_cache, v_cache, length)
+
+
+# -- MLPs ---------------------------------------------------------------------------
+
+
+def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+           wd: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ wg) * (x @ wu)
+    return h @ wd
