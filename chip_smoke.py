@@ -8,13 +8,28 @@ prints no result line:
 
 1. env      -- card, power limit, versions; builds the CUDA kernels.
 2. kernels  -- each kernel against its plain version on the card, at the
-               serve path's shapes and the JAX kernel tests' shapes, f32
-               and bf16; times at the serve path's shapes.
+               main paths' shapes and the JAX kernel tests' shapes, f32
+               and bf16; times at the serve path's shapes (forward,
+               decode) and the training shape (backward).
 3. serve    -- full-width qwen2-0.5B (bf16, random weights from a seed)
                through ``ServingEngine``; the launch counters must show
                that every prefill and decode layer ran the kernels.
 4. parity   -- full-width f32 prefill + decode on the card against the
                same calls with ``device="cpu"``.
+5. train    -- full-width qwen2-0.5B (bf16, random weights from a seed)
+               through ``repro_torch.train.loop.train``: per-step time,
+               tokens/s, finite losses starting near ln(vocab); the launch
+               counters must read 2·L·steps forward (remat runs each
+               layer again in the backward) and L·steps backward.  Then a
+               restart from a checkpoint restored to the card, at full
+               width and reduced depth.
+6. train-parity -- one full-width, reduced-depth f32 train step on the
+               card against the same step with ``device="cpu"``.
+7. launcher -- ``python -m repro_torch.launch.train --arch qwen2_0_5b
+               --full-config`` as a user runs it (its defaults, a fresh
+               checkpoint directory), twice: the first run trains every
+               step with finite losses and writes its checkpoints, the
+               second finds the last step saved and runs none.
 
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card;
 imports nothing of JAX or of the JAX package.
@@ -23,6 +38,8 @@ imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -42,9 +59,21 @@ FA_SHAPES = [(1, 64, 64, 1, 1, 32), (2, 128, 128, 4, 2, 64),
              (1, 100, 100, 8, 8, 64), (2, 64, 192, 4, 1, 48)]
 DEC_SHAPES = [(1, 128, 1, 1, 32), (2, 256, 4, 2, 64), (3, 300, 8, 4, 48)]
 
+# the JAX backward tests' shapes and a cross length (B, S, T, Hq, Hkv, D)
+BWD_SHAPES = [(2, 64, 64, 4, 2, 32), (1, 96, 96, 8, 8, 64), (2, 64, 192, 4, 1, 48)]
+
 # the serve phase: full-width qwen2-0.5B, 8 requests in rounds of 4
 ARCH, MAX_BATCH, MAX_LEN, PROMPT_LEN = "qwen2_0_5b", 4, 512, 256
 N_REQUESTS, NEW_TOKENS = 8, 32
+
+# the train phase: full-width qwen2-0.5B, bf16; a checkpoint once, at the end
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 512, 4, 4
+TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 14, 2, 64)   # its attention
+RESTART_LAYERS, PARITY_LAYERS, PARITY_SEQ = 2, 2, 64
+
+# the launcher phase: the launcher's defaults
+LAUNCH_STEPS, LAUNCH_CKPT_EVERY, LAUNCH_SEQ, LAUNCH_BATCH = 20, 10, 128, 4
+LAUNCH_TIMEOUT_S = 600
 
 
 def emit(obj) -> None:
@@ -205,6 +234,70 @@ def phase_kernels(torch, fa, dec) -> dict:
     return {name: {**timing[name], "max_abs_err": errs[name]} for name in timing}
 
 
+def phase_kernels_bwd(torch, fa, fb) -> dict:
+    """The backward kernel against its plain version (dq, dk and dv), then
+    its times at the training shape (bf16).  A gradient's error is taken
+    over its scale, max(1, max |plain|): dk and dv sum a whole GQA group
+    and reach magnitudes where one bf16 rounding step is above 2e-2, and
+    the kernel and the plain version each round their f32 sums once."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def inputs(shape, dt):
+        b, s, t, hq, hkv, d = shape
+        return [torch.randn(sh, generator=gen, device="cuda").to(dt)
+                for sh in ((b, s, hq, d), (b, t, hkv, d), (b, t, hkv, d), (b, s, hq, d))]
+
+    checks, err_train = [], 0.0
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for shape in [TRAIN_SHAPE] + BWD_SHAPES:
+            q, k, v, do = inputs(shape, dt)
+            cases = [(True, 0), (False, 0)] + ([(True, 16)] if shape == TRAIN_SHAPE else [])
+            for causal, q_offset in cases:
+                o, lse = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                            return_lse=True)
+                got = fb.flash_attention_bwd(q, k, v, o, do, lse, causal, q_offset)
+                want = fb.flash_attention_bwd_plain(q, k, v, o, do, lse, causal, q_offset)
+                torch.cuda.synchronize()
+                errs = {n: max_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+                refs = {n: w.float().abs().max().item() for n, w in zip(("dq", "dk", "dv"), want)}
+                scaled = max(errs[n] / max(1.0, refs[n]) for n in errs)
+                checks.append({"kernel": "flash_attention_bwd", "dtype": dtype, "shape": shape,
+                               "causal": causal, "q_offset": q_offset, "max_abs_err": errs,
+                               "max_abs_plain": refs, "scaled_err": scaled, "tol": TOL[dtype],
+                               "ok": scaled <= TOL[dtype]})
+                if shape == TRAIN_SHAPE and dtype == "bfloat16" and causal and not q_offset:
+                    err_train = max(errs.values())
+    if not all(c["ok"] for c in checks):
+        emit({"phase": "kernels_bwd", "ok": False, "checks": checks})
+        raise AssertionError("the backward kernel disagrees with its plain version")
+
+    # times at the training shape, in its dtype (bf16), causal
+    b, s, t, hq, hkv, d = TRAIN_SHAPE
+    q, k, v, do = inputs(TRAIN_SHAPE, torch.bfloat16)
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    pairs = b * hq * sum(min(t, i + 1) for i in range(s))     # visible query-key pairs
+    n_bytes = (4 * b * s * hq * d + 4 * b * t * hkv * d) * 2 + b * hq * s * 4
+    bwd_bound, bwd_by = bound(n_bytes, 10 * d * pairs, "bfloat16")
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    sdpa_ms = cuda_ms(sdpa)
+    sdpa_fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
+    kernel = lambda: fb.flash_attention_bwd(q, k, v, o, do, lse, True)
+    timing = dict(
+        ms=cuda_ms(kernel), eager_ms=eager_ms(kernel),
+        plain_ms=cuda_ms(lambda: fb.flash_attention_bwd_plain(q, k, v, o, do, lse, True)),
+        library_ms=sdpa_fwd_bwd_ms - sdpa_ms, library_fwd_ms=sdpa_ms,
+        library_fwd_bwd_ms=sdpa_fwd_bwd_ms, bound_ms=bwd_bound, bound_by=bwd_by,
+        shape=list(TRAIN_SHAPE),
+        # the forward kernel at the same shape, for the train phase's shares
+        fwd_ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True)))
+    emit({"phase": "kernels_bwd", "ok": True, "checks": checks, "timing_bf16": timing})
+    return {**timing, "max_abs_err": err_train}
+
+
 def phase_serve(torch, get_config, Request, ServingEngine, fa, dec, kernels) -> dict:
     import numpy as np
     cfg = get_config(ARCH)
@@ -319,6 +412,182 @@ def phase_parity(torch, get_config, LM) -> None:
         raise AssertionError("card and CPU disagree")
 
 
+def phase_train(torch, get_config, fa, fb, bwd) -> dict:
+    """Full-width training through the loop, then a restart at reduced
+    depth.  Returns the main run's launch counts."""
+    import tempfile
+    from repro_torch.train.loop import FailurePlan, train
+    cfg = get_config(ARCH)
+    stamps = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention.launches = 0
+        fb.flash_attention_bwd.launches = 0
+        t0 = time.perf_counter()
+        rep = train(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+                    ckpt_dir=ckpt, ckpt_every=TRAIN_STEPS, seed=0, device="cuda",
+                    on_step=lambda step, loss: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        launches = {"flash_attention_fwd": fa.flash_attention.launches,
+                    "flash_attention_bwd": fb.flash_attention_bwd.launches}
+        wall = time.perf_counter() - t0
+        saved = sorted(os.listdir(ckpt))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]   # steps 1.. (warm)
+    mean_ms = sum(step_ms) / len(step_ms)
+    n_layers = cfg.n_layers
+    attn_ms = n_layers * (2 * bwd["fwd_ms"] + bwd["ms"])      # per step, by device time
+    ln_vocab = math.log(cfg.padded_vocab)
+    problems = []
+    if launches != {"flash_attention_fwd": 2 * n_layers * TRAIN_STEPS,
+                    "flash_attention_bwd": n_layers * TRAIN_STEPS}:
+        problems.append(f"launches {launches}, want 2·L·steps forward and L·steps backward")
+    if not all(math.isfinite(x) for x in rep.losses) or len(rep.losses) != TRAIN_STEPS:
+        problems.append(f"losses {rep.losses}")
+    elif abs(rep.losses[0] - ln_vocab) > 0.5:
+        problems.append(f"first loss {rep.losses[0]} is not near ln(vocab) {ln_vocab}")
+    if saved != [f"step_{TRAIN_STEPS:08d}"]:
+        problems.append(f"checkpoints {saved}")
+
+    # restart: a failure mid-run restores the latest checkpoint to the card
+    rcfg = replace(cfg, n_layers=RESTART_LAYERS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        rrep = train(rcfg, seq_len=128, global_batch=2, steps=4, ckpt_dir=ckpt,
+                     ckpt_every=2, failure_plan=FailurePlan(fail_at_steps=(3,)), seed=1,
+                     device="cuda")
+    # steps 0, 1, 2, then the failure at 3 restores step 2's checkpoint: 2 runs again
+    replay_err = abs(rrep.losses[2] - rrep.losses[3]) if len(rrep.losses) == 5 else math.inf
+    if rrep.restarts != 1 or rrep.steps_run != 5 or replay_err > 1e-4:
+        problems.append(f"restart: {rrep}")
+    emit({"phase": "train", "arch": ARCH, "n_layers": n_layers, "d_model": cfg.d_model,
+          "dtype": cfg.param_dtype, "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+          "steps": TRAIN_STEPS, "losses": rep.losses, "ln_padded_vocab": ln_vocab,
+          "first_step_ms": 1e3 * (stamps[0] - t0), "step_ms": step_ms,
+          "mean_step_ms": mean_ms, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3,
+          "wall_s_with_checkpoint": wall, "checkpoints": saved, "peak_mem_gb": peak_gb,
+          "launches": launches, "stragglers": rep.stragglers,
+          # the attention kernels' device time (kernels phase, training
+          # shape) per step, as a share of the host-clock step time
+          "attention_kernels_ms_per_step": attn_ms,
+          "flash_fwd_share_of_step": n_layers * 2 * bwd["fwd_ms"] / mean_ms,
+          "flash_bwd_share_of_step": n_layers * bwd["ms"] / mean_ms,
+          "restart": {"n_layers": RESTART_LAYERS, "seq_len": 128, "global_batch": 2,
+                      "restarts": rrep.restarts, "steps_run": rrep.steps_run,
+                      "losses": rrep.losses, "replayed_step_abs_err": replay_err,
+                      "tol": 1e-4},
+          "ok": not problems})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
+
+
+def phase_train_parity(torch, get_config, LM) -> None:
+    """One f32 train step at full width and reduced depth, the card against
+    the CPU from the same weights and batch.  Adam's first step is
+    lr·g/(|g| + eps), the sign of g for the default eps, which flips
+    between two correct runs wherever g is near 0; eps = 1e-2 makes it a
+    smooth function of g, so every updated leaf compares at f32's
+    summation-order tolerance."""
+    from repro_torch.data import TokenDataset
+    from repro_torch.optim import AdamW
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.tree import flatten_with_keys, tree_map
+    cfg = replace(get_config(ARCH), n_layers=PARITY_LAYERS, param_dtype="float32",
+                  compute_dtype="float32")
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-2)
+    cpu_lm, gpu_lm = LM(cfg, device="cpu"), LM(cfg)
+    cpu_params = cpu_lm.init(seed=2)
+    gpu_params = tree_map(lambda x: x.to("cuda"), cpu_params)
+    batch = TokenDataset(cfg, PARITY_SEQ, 2, seed=2).get_batch(0)
+    out = {}
+    for name, lm, params in (("cuda", gpu_lm, gpu_params), ("cpu", cpu_lm, cpu_params)):
+        dev_batch = {k: torch.from_numpy(v).to(lm.device) for k, v in batch.items()}
+        new, state, metrics = make_train_step(lm, opt)(params, opt.init(params), dev_batch)
+        out[name] = (dict(flatten_with_keys(new)), {k: float(v) for k, v in metrics.items()})
+    (gp, gm), (cp, cm) = out["cuda"], out["cpu"]
+    rel = lambda a, b: ((a.cpu() - b).abs().max() / (b.abs().max() + 1e-30)).item()
+    leaf_err = {k: rel(gp[k], cp[k]) for k in cp}
+    metric_err = {k: abs(gm[k] - cm[k]) / abs(cm[k]) for k in cm}
+    tol = 1e-4
+    ok = max(leaf_err.values()) <= tol and max(metric_err.values()) <= tol and all(
+        math.isfinite(v) for v in gm.values())
+    emit({"phase": "train_parity", "arch": ARCH, "n_layers": PARITY_LAYERS, "dtype": "float32",
+          "seq_len": PARITY_SEQ, "global_batch": 2, "metrics_cuda": gm, "metrics_cpu": cm,
+          "metric_rel_err": metric_err, "max_leaf_rel_err": max(leaf_err.values()),
+          "worst_leaf": max(leaf_err, key=leaf_err.get), "tol": tol, "ok": ok})
+    if not ok:
+        raise AssertionError("card and CPU train steps disagree")
+
+
+def _run_launcher(cmd: list[str]) -> tuple[int, list[tuple[float, str]]]:
+    """Run ``cmd``, stamping each output line with the host clock as it
+    arrives; killed after ``LAUNCH_TIMEOUT_S``."""
+    import threading
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    timer = threading.Timer(LAUNCH_TIMEOUT_S, proc.kill)
+    timer.start()
+    try:
+        lines = [(time.perf_counter(), line.rstrip("\n")) for line in proc.stdout]
+        return proc.wait(), lines
+    finally:
+        timer.cancel()
+        proc.kill()
+        proc.wait()
+
+
+def phase_launcher(torch) -> None:
+    """The training launcher as a user runs it, twice into one fresh
+    checkpoint directory.  Step times are the intervals between its
+    ``step N loss`` lines; the one that holds a checkpoint is reported
+    apart."""
+    import re
+    import statistics
+    import tempfile
+    torch.cuda.empty_cache()        # the launcher is another process on the same card
+    cmd = [sys.executable, "-u", "-m", "repro_torch.launch.train", "--arch", ARCH,
+           "--full-config"]
+    step_re = re.compile(r"^step (\d+) loss (\S+)$")
+    problems, runs = [], []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as ckpt:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            rc, lines = _run_launcher(cmd + ["--ckpt-dir", ckpt])
+            steps = [(t, int(m[1]), float(m[2])) for t, line in lines
+                     if (m := step_re.match(line))]
+            runs.append({"rc": rc, "wall_s": time.perf_counter() - t0, "steps": steps,
+                         "last_line": lines[-1][1] if lines else "",
+                         "checkpoints": sorted(os.listdir(ckpt))})
+    first, second = runs
+    losses = [loss for _, _, loss in first["steps"]]
+    gaps = [1e3 * (b[0] - a[0]) for a, b in zip(first["steps"], first["steps"][1:])]
+    # the interval ending at step LAUNCH_CKPT_EVERY holds that step's save
+    ckpt_gap = gaps.pop(LAUNCH_CKPT_EVERY - 1) if len(gaps) >= LAUNCH_CKPT_EVERY else None
+    want_ckpts = [f"step_{s:08d}" for s in range(LAUNCH_CKPT_EVERY, LAUNCH_STEPS + 1,
+                                                 LAUNCH_CKPT_EVERY)]
+    if first["rc"] != 0 or [s for _, s, _ in first["steps"]] != list(range(LAUNCH_STEPS)):
+        problems.append(f"first run: rc {first['rc']}, steps "
+                        f"{[s for _, s, _ in first['steps']]}, last line {first['last_line']!r}")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        problems.append(f"first run losses {losses}")
+    if first["checkpoints"] != want_ckpts:
+        problems.append(f"checkpoints {first['checkpoints']}, want {want_ckpts}")
+    if second["rc"] != 0 or second["steps"] or not second["last_line"].startswith("no steps run"):
+        problems.append(f"second run: rc {second['rc']}, {len(second['steps'])} steps, "
+                        f"last line {second['last_line']!r}")
+    mean_ms = sum(gaps) / len(gaps) if gaps else math.nan
+    emit({"phase": "launcher", "command": "python " + " ".join(cmd[1:]), "steps": LAUNCH_STEPS,
+          "seq_len": LAUNCH_SEQ, "global_batch": LAUNCH_BATCH, "losses": losses,
+          "step_ms": gaps, "mean_step_ms": mean_ms,
+          "median_step_ms": statistics.median(gaps) if gaps else math.nan,
+          "tokens_per_s": LAUNCH_BATCH * LAUNCH_SEQ / mean_ms * 1e3,
+          "interval_with_checkpoint_ms": ckpt_gap, "checkpoints": first["checkpoints"],
+          "wall_s": [r["wall_s"] for r in runs], "rc": [r["rc"] for r in runs],
+          "last_lines": [r["last_line"] for r in runs], "ok": not problems})
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -328,6 +597,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.models.transformer import LM
     from repro_torch.serving import Request, ServingEngine
 
@@ -345,13 +615,25 @@ def main() -> int:
                          "cudnn": torch.backends.cudnn.allow_tf32}})
 
     kernels = phase_kernels(torch, fa, dec)
-    launches = phase_serve(torch, get_config, Request, ServingEngine, fa, dec, kernels)
+    kernels["flash_attention_bwd"] = phase_kernels_bwd(torch, fa, fb)
+    serve = phase_serve(torch, get_config, Request, ServingEngine, fa, dec, kernels)
     phase_parity(torch, get_config, LM)
+    trained = phase_train(torch, get_config, fa, fb, kernels["flash_attention_bwd"])
+    phase_train_parity(torch, get_config, LM)
+    phase_launcher(torch)
+    # each kernel's launches on the main paths' counted runs: forward on
+    # serve and train, decode on serve, backward on train
+    launches = {"flash_attention_fwd": serve["flash_attention_fwd"]
+                + trained["flash_attention_fwd"],
+                "decode_attention": serve["decode_attention"],
+                "flash_attention_bwd": trained["flash_attention_bwd"]}
 
     replaces = {"flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                         "src/repro/kernels/flash_attention.py:25"),
                 "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                                     "src/repro/kernels/decode_attention.py:24")}
+                                     "src/repro/kernels/decode_attention.py:24"),
+                "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                        "src/repro/kernels/flash_attention_bwd.py:30")}
     print(card, flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": replaces[name][0],

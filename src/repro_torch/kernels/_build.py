@@ -32,6 +32,7 @@ SIGNATURES = {
                            + [LL] * 12 + [I, I, I, F, P],
     "decode_attention": [I, I, P, P, P, P, I, P, I, I, I, I]
                         + [LL] * 10 + [F, P],
+    "flash_attention_bwd": [I, I] + [P] * 11 + [I] * 5 + [LL] * 24 + [I, I, F, P],
 }
 
 

@@ -59,13 +59,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).to(q.dtype), m + torch.log(l_safe)
 
 
-def check_rows(name: str, x: torch.Tensor) -> None:
+def _rows_readable(x: torch.Tensor) -> bool:
     """The kernels read 4 elements at a time along D: unit stride on D,
     and every row start aligned to 4 elements."""
-    if x.stride(3) != 1 or any(st % 4 for st in x.stride()[:3]) \
-            or x.data_ptr() % (4 * x.element_size()):
+    return x.stride(3) == 1 and not any(st % 4 for st in x.stride()[:3]) \
+        and not x.data_ptr() % (4 * x.element_size())
+
+
+def check_rows(name: str, x: torch.Tensor) -> None:
+    if not _rows_readable(x):
         raise ValueError(f"{name}: need unit stride on D and 4-aligned rows, "
                          f"got strides {x.stride()}")
+
+
+def readable_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` when the kernels can read it in place, else a fresh contiguous
+    copy (a new allocation starts aligned)."""
+    return x if _rows_readable(x) else x.clone(memory_format=torch.contiguous_format)
 
 
 def _check(q, k, v):

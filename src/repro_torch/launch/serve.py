@@ -13,7 +13,7 @@ from repro_torch.configs import get_config
 from repro_torch.serving import Request, ServingEngine
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("-n", "--requests", type=int, default=8)
@@ -21,7 +21,7 @@ def main() -> None:
     ap.add_argument("--max-new-tokens", type=int, default=8)
     ap.add_argument("--full-config", action="store_true")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if not args.full_config:

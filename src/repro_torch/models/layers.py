@@ -1,9 +1,10 @@
 """Model building blocks: the dense subset of ``repro.models.layers``.
 
-Elementwise and normalisation code is plain PyTorch; the two attention
+Elementwise and normalisation code is plain PyTorch; the attention
 functions go through the kernels' wrappers, which launch the CUDA
 kernels for tensors on the GPU and take their plain versions for tensors
-on the CPU.
+on the CPU.  ``blocked_attention`` is differentiable through
+``FlashAttention``, whose backward is the flash-attention backward kernel.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention import decode_attention as _decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
+from repro_torch.kernels.flash_attention import readable_rows
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd as _flash_bwd_kernel
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -73,10 +76,41 @@ def _expand_kv(k: torch.Tensor, n_q_heads: int) -> torch.Tensor:
     return k.repeat_interleave(n_q_heads // hkv, dim=2)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the flash backward, the counterpart of the
+    custom VJP of ``repro.models.layers._flash_attention_xla``: the
+    forward saves only (q, k, v, o, lse); the backward recomputes the
+    probabilities tile by tile in the backward kernel.  On the CPU both
+    directions take the kernels' plain versions; nothing is
+    differentiated through the plain forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int):
+        o, lse = _flash_kernel(q, k, v, causal=causal, q_offset=q_offset,
+                               return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        # autograd may hand over a strided or misaligned gradient; the
+        # kernel reads unit-stride rows that start 4-aligned
+        dq, dk, dv = _flash_bwd_kernel(q, k, v, o, readable_rows(do), lse,
+                                       ctx.causal, ctx.q_offset)
+        return dq, dk, dv, None, None
+
+
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool, q_offset: int = 0) -> torch.Tensor:
-    """Flash attention, forward only.  q: (B, S, Hq, D); k, v: (B, T, Hkv,
-    D); GQA through the kernel's head mapping, no KV repeat in memory."""
+    """Flash attention.  q: (B, S, Hq, D); k, v: (B, T, Hkv, D); GQA
+    through the kernel's head mapping, no KV repeat in memory.  When a
+    gradient is wanted it goes through ``FlashAttention``; otherwise
+    (prefill) the forward kernel runs alone, without lse."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, q_offset)
     return _flash_kernel(q, k, v, causal=causal, q_offset=q_offset)
 
 

@@ -4,9 +4,10 @@
 Parameters are a dict of tensors with the JAX tree's keys and its
 stacked leading-``L`` shapes (``blocks/wq`` is (L, D, Hq·hd)), so a JAX
 parameter tree converts key by key (``repro_torch.convert``).  The JAX
-``lax.scan`` over layers is a Python loop over that leading axis.  The
-decode cache keeps JAX's (L, B, T, Hkv, hd) layout but, unlike the JAX
-functional update, is written in place.
+``lax.scan`` over layers is a Python loop over that leading axis, and
+its ``jax.checkpoint`` per layer (and per loss chunk) is
+``torch.utils.checkpoint``.  The decode cache keeps JAX's (L, B, T, Hkv,
+hd) layout but, unlike the JAX functional update, is written in place.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -126,23 +128,70 @@ class LM:
         x = x + o.reshape(b, s, -1) @ bp["wo"]
         return self._mlp(bp, x), k, v
 
-    # ------------------------------------------------------------------ forward
+    # ------------------------------------------------------------ forward (train / prefill-style)
 
-    @torch.no_grad()
-    def forward(self, params: dict, batch: dict) -> torch.Tensor:
-        """Final hidden states (B, S, D) after the output norm."""
+    def _train_block(self, bp: dict, x: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+        return self._block(bp, x, positions)[0]
+
+    def forward(self, params: dict, batch: dict,
+                remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+        """Returns (final hidden states (B, S, D), aux loss scalar f32; 0
+        for the dense family).  Differentiable; with ``remat`` each layer
+        is checkpointed, so only its input is kept for the backward and
+        the layer (its attention kernel included) runs again there."""
         c = self.cfg
         tokens = batch["tokens"]
         x = params["emb"][tokens].to(self.cdt)
         positions = torch.arange(tokens.shape[1], device=x.device)
-        for i in range(c.n_layers):
-            x, _, _ = self._block(self._layer(params, i), x, positions)
-        return rms_norm(x, params["out_norm"], c.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        # unbind, not indexing: its backward stacks the layers' gradients
+        # in one pass instead of adding L zero-padded copies
+        names = list(params["blocks"])
+        per_layer = zip(*(params["blocks"][k].unbind(0) for k in names))
+        for leaves in per_layer:
+            bp = dict(zip(names, leaves))
+            if remat:
+                x = checkpoint(self._train_block, bp, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._train_block(bp, x, positions)
+        return rms_norm(x, params["out_norm"], c.norm_eps), aux
+
+    # ------------------------------------------------------------------ loss
 
     def lm_head(self, params: dict) -> torch.Tensor:
         if self.cfg.tie_embeddings:
             return params["emb"].T
         return params["lm_head"]
+
+    @staticmethod
+    def _chunk_nll(xb: torch.Tensor, tb: torch.Tensor,
+                   head: torch.Tensor) -> torch.Tensor:
+        """Summed cross-entropy of one sequence chunk (B, chunk, D)."""
+        logits = (xb @ head).float()
+        gold = logits.gather(-1, tb[..., None])[..., 0]
+        return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+    def loss(self, params: dict, batch: dict, remat: bool = True,
+             loss_chunk: int = 512) -> torch.Tensor:
+        """Causal LM cross-entropy over every position (the last label of
+        a row is counted like any other), logits computed in sequence
+        chunks, each checkpointed, so the (B, chunk, V) f32 logits are
+        recomputed in the backward and the (B, S, V) tensor never exists."""
+        x, aux = self.forward(params, batch, remat=remat)
+        targets = batch["labels"].long()
+        head = self.lm_head(params)
+        b, s, _ = x.shape
+        chunk = min(loss_chunk, s)
+        if s % chunk:
+            raise ValueError(f"sequence {s} is not a multiple of loss_chunk {chunk}")
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, s, chunk):
+            tot = tot + checkpoint(self._chunk_nll, x[:, c0:c0 + chunk],
+                                   targets[:, c0:c0 + chunk], head,
+                                   use_reentrant=False)
+        return tot / (b * s) + 0.01 * aux
 
     # ------------------------------------------------------------------ decode
 

@@ -15,8 +15,12 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.transformer import LM  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.train.loop import train  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -24,7 +28,8 @@ FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "repro"}
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -57,12 +62,23 @@ def test_importing_every_port_module_loads_no_jax():
     assert r.returncode == 0, r.stderr
 
 
-@pytest.mark.parametrize("make", [lambda cfg: LM(cfg), lambda cfg: ServingEngine(cfg)],
-                         ids=["LM", "ServingEngine"])
-def test_entry_points_default_to_cuda_and_raise_without_it(make, monkeypatch):
+ENTRY_POINTS = {
+    "LM": lambda cfg, tmp: LM(cfg),
+    "ServingEngine": lambda cfg, tmp: ServingEngine(cfg),
+    "train": lambda cfg, tmp: train(cfg, steps=1, ckpt_dir=str(tmp)),
+    "launch.train": lambda cfg, tmp: launch_train.main(
+        ["--arch", "qwen2_0_5b", "--steps", "1", "--ckpt-dir", str(tmp)]),
+    "launch.serve": lambda cfg, tmp: launch_serve.main(["--arch", "qwen2_0_5b"]),
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["prog"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        make(get_config("qwen2_0_5b").smoke())
+        ENTRY_POINTS[name](get_config("qwen2_0_5b").smoke(), tmp_path / "ckpt")
+    assert not (tmp_path / "ckpt").exists()      # raised before touching the disk
 
 
 def test_cpu_only_when_asked():
@@ -85,6 +101,8 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors():
         flash_attention(q, k, k, causal=True)
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention(q[:, :1], k, k, torch.zeros((), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(q, k, k, q, q, torch.empty((1, 2, 8), device="meta"), True)
 
 
 def test_build_raises_without_nvcc(monkeypatch):

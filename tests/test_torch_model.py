@@ -82,7 +82,7 @@ def test_decode_matches_forward(dtype):
     params = params_from_numpy(_params(jcfg, seed=2), "cpu")
     toks = torch.from_numpy(
         np.random.default_rng(3).integers(0, cfg.vocab, (B, S + 1))).long()
-    x = lm.forward(params, {"tokens": toks})
+    x, _ = lm.forward(params, {"tokens": toks}, remat=False)
     full = (x[:, S] @ lm.lm_head(params)).float()
     cache, _ = lm.prefill(params, {"tokens": toks[:, :S]}, max_len=S + 4)
     _, dec = lm.decode_step(params, cache, toks[:, S])
