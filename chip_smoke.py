@@ -7,30 +7,48 @@ Phases, each printing one JSON line; any failure exits non-zero and
 prints no result line:
 
 1. env      -- card, power limit, versions; builds the CUDA kernels.
-2. kernels  -- each kernel against its plain version on the card, at the
-               main paths' shapes and the JAX kernel tests' shapes, f32
-               and bf16; times at the serve path's shapes (forward,
-               decode) and the training shape (backward).
+2. kernels  -- each attention kernel against its plain version on the
+               card, at the main paths' shapes (qwen2-0.5B's and
+               zamba2-2.7B's shared block's, head dim 80) and the JAX
+               kernel tests' shapes, f32 and bf16; times at the serve
+               path's shapes (forward, decode) and the training shape
+               (backward).  Then the scan kernel against its plain
+               version (y and h_final, with and without h0, f32 and bf16)
+               at the JAX scan test's shapes and both SSM serve shapes,
+               its refusal under autograd, and its times.
 3. serve    -- full-width qwen2-0.5B (bf16, random weights from a seed)
                through ``ServingEngine``; the launch counters must show
                that every prefill and decode layer ran the kernels.
 4. parity   -- full-width f32 prefill + decode on the card against the
                same calls with ``device="cpu"``.
-5. train    -- full-width qwen2-0.5B (bf16, random weights from a seed)
+5. serve_ssm, serve_hybrid -- the same for full-width falcon-mamba-7B
+               (the scan once per layer per prefill, no attention) and
+               zamba2-2.7B (the scan per layer, flash per application of
+               the shared block per prefill, decode attention per
+               application per step).
+6. ssm_parity -- card against CPU, f32, full width at reduced depth:
+               falcon-mamba-7B at 2 layers, zamba2-2.7B at 6 (the shared
+               block runs once).
+7. train    -- full-width qwen2-0.5B (bf16, random weights from a seed)
                through ``repro_torch.train.loop.train``: per-step time,
                tokens/s, finite losses starting near ln(vocab); the launch
                counters must read 2·L·steps forward (remat runs each
                layer again in the backward) and L·steps backward.  Then a
                restart from a checkpoint restored to the card, at full
                width and reduced depth.
-6. train-parity -- one full-width, reduced-depth f32 train step on the
+8. train-parity -- one full-width, reduced-depth f32 train step on the
                card against the same step with ``device="cpu"``.
-7. launcher -- ``python -m repro_torch.launch.train --arch qwen2_0_5b
+9. launcher -- ``python -m repro_torch.launch.train --arch qwen2_0_5b
                --full-config`` as a user runs it (its defaults, a fresh
                checkpoint directory), twice: the first run trains every
                step with finite losses and writes its checkpoints, the
                second finds the last step saved and runs none.
+10. serve_launcher -- ``python -m repro_torch.launch.serve --arch
+               zamba2_2_7b --full-config``: exit 0, every request done.
 
+Every counted run (3, 5, 7) sets every kernel's launch counter to 0
+just before it and reads all of them just after.  The line before the
+last lists each kernel with its launches summed over those runs.
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card;
 imports nothing of JAX or of the JAX package.
 """
@@ -62,9 +80,23 @@ DEC_SHAPES = [(1, 128, 1, 1, 32), (2, 256, 4, 2, 64), (3, 300, 8, 4, 48)]
 # the JAX backward tests' shapes and a cross length (B, S, T, Hq, Hkv, D)
 BWD_SHAPES = [(2, 64, 64, 4, 2, 32), (1, 96, 96, 8, 8, 64), (2, 64, 192, 4, 1, 48)]
 
-# the serve phase: full-width qwen2-0.5B, 8 requests in rounds of 4
+# the serve phases: full width, 8 requests in rounds of 4
 ARCH, MAX_BATCH, MAX_LEN, PROMPT_LEN = "qwen2_0_5b", 4, 512, 256
 N_REQUESTS, NEW_TOKENS = 8, 32
+SSM_ARCH, HYBRID_ARCH = "falcon_mamba_7b", "zamba2_2_7b"
+
+# the scan: the JAX kernel test's shapes (Bt, S, Din, N), then the serve
+# prefill's shapes of falcon-mamba-7B and zamba2-2.7B; its tolerances
+# (atol, rtol), the JAX scan test's in f32
+SCAN_SHAPES = [(1, 32, 16, 4), (2, 96, 64, 8), (1, 100, 128, 16)]
+SCAN_SERVE = {SSM_ARCH: (1, PROMPT_LEN, 8192, 16), HYBRID_ARCH: (1, PROMPT_LEN, 5120, 64)}
+SCAN_TOL = {"float32": (5e-5, 5e-4), "bfloat16": (2e-2, 2e-2)}
+# zamba2-2.7B's shared attention block: 32 heads of 80, group 1
+HYBRID_FA = (1, PROMPT_LEN, PROMPT_LEN, 32, 32, 80)
+HYBRID_DEC = (MAX_BATCH, MAX_LEN, 32, 32, 80)
+# card-vs-CPU parity depth: 2 falcon layers; 6 zamba2 layers, so that the
+# shared block (every 6th layer) runs once
+SSM_PARITY_LAYERS = {SSM_ARCH: 2, HYBRID_ARCH: 6}
 
 # the train phase: full-width qwen2-0.5B, bf16; a checkpoint once, at the end
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 512, 4, 4
@@ -153,13 +185,13 @@ def phase_kernels(torch, fa, dec) -> dict:
     slice_fa = (1, PROMPT_LEN, PROMPT_LEN, 14, 2, 64)
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
-        for shape in [slice_fa] + FA_SHAPES:
+        for shape in [slice_fa, HYBRID_FA] + FA_SHAPES:
             b, s, t, hq, hkv, d = shape
             q, k, v = randn(b, s, hq, d, dtype=dt), randn(b, t, hkv, d, dtype=dt), \
                 randn(b, t, hkv, d, dtype=dt)
             # every case in full; the serve shape also with a q_offset and a kv_len
             cases = [(c, 0, t) for c in (True, False)]
-            if shape == slice_fa:
+            if shape in (slice_fa, HYBRID_FA):
                 cases += [(True, 16, t - 40), (False, 0, t - 40)]
             for causal, q_offset, kv_len in cases:
                 o, lse = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
@@ -176,11 +208,11 @@ def phase_kernels(torch, fa, dec) -> dict:
                     errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], err)
 
         slice_dec = (MAX_BATCH, MAX_LEN, 14, 2, 64)
-        for shape in [slice_dec] + DEC_SHAPES:
+        for shape in [slice_dec, HYBRID_DEC] + DEC_SHAPES:
             b, t, hq, hkv, d = shape
             q, kc, vc = randn(b, 1, hq, d, dtype=dt), randn(b, t, hkv, d, dtype=dt), \
                 randn(b, t, hkv, d, dtype=dt)
-            lens = (1, 257, 511) if shape == slice_dec else (1, t // 2, t - 1)
+            lens = (1, 257, 511) if shape in (slice_dec, HYBRID_DEC) else (1, t // 2, t - 1)
             for n in lens:
                 per_row = [max(1, n - 13 * i) for i in range(b)]
                 for length in (torch.tensor(n, dtype=torch.int32, device="cuda"),
@@ -298,9 +330,99 @@ def phase_kernels_bwd(torch, fa, fb) -> dict:
     return {**timing, "max_abs_err": err_train}
 
 
-def phase_serve(torch, get_config, Request, ServingEngine, fa, dec, kernels) -> dict:
+def scan_bound(bt: int, s: int, din: int, n: int, elt: int) -> tuple[float, str]:
+    """Bytes: x and dt read and y written (Bt,S,Din), B and C read
+    (Bt,S,N), in the input type; A (Din,N) and D (Din,) read and h_final
+    (Bt,Din,N) written, in f32.  FLOPs: 6 per (t, d, n) step and 3 per
+    (t, d), at the f32 rate (the scan's arithmetic is f32)."""
+    n_bytes = (3 * bt * s * din + 2 * bt * s * n) * elt + (din * n + din + bt * din * n) * 4
+    return bound(n_bytes, bt * s * din * (6 * n + 3), "float32")
+
+
+def phase_kernels_scan(torch, ms) -> dict:
+    """The scan kernel against its plain version (y and h_final, from zeros
+    and from a given h0; B and C strided slices of one projection, as on
+    the model path), its refusal under autograd, then its times at the
+    two serve shapes (bf16).  Returns its row for the kernels line, at
+    falcon-mamba-7B's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def inputs(shape, dt):
+        bt, s, din, n = shape
+        g = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+        proj = (0.5 * g(bt, s, 3 * n)).to(dt)
+        return ((0.5 * g(bt, s, din)).to(dt), (0.5 * g(bt, s, din)).to(dt),
+                -torch.exp(0.3 * g(din, n)), proj[..., n:2 * n], proj[..., 2 * n:],
+                1 + 0.5 * g(din), 0.5 * g(bt, din, n))
+
+    def over_tol(got, want, atol, rtol):
+        """max(|got - want| - rtol·|want|): at most atol where the two agree."""
+        want = want.float()
+        return ((got.float() - want).abs() - rtol * want.abs()).max().item()
+
+    checks, row_err = [], 0.0
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        atol, rtol = SCAN_TOL[dtype]
+        for shape in list(SCAN_SERVE.values()) + SCAN_SHAPES:
+            x, dtr, A, B, C, D, h0 = inputs(shape, dt)
+            for start in (None, h0):
+                y, h = ms.mamba_scan(x, dtr, A, B, C, D, start)
+                y_ref, h_ref = ms.mamba_scan_plain(x, dtr, A, B, C, D, start)
+                torch.cuda.synchronize()
+                errs = {"y": max_err(y, y_ref), "h_final": max_err(h, h_ref)}
+                ok = (over_tol(y, y_ref, atol, rtol) <= atol
+                      and over_tol(h, h_ref, atol, rtol) <= atol
+                      and y.dtype == dt and h.dtype == torch.float32)
+                checks.append({"kernel": "mamba_scan", "dtype": dtype, "shape": shape,
+                               "h0": start is not None, "max_abs_err": errs,
+                               "max_abs_plain": {"y": y_ref.float().abs().max().item(),
+                                                 "h_final": h_ref.abs().max().item()},
+                               "tol": [atol, rtol], "ok": ok})
+                if shape == SCAN_SERVE[SSM_ARCH] and dtype == "bfloat16" and start is None:
+                    row_err = errs["y"]
+    x, dtr, A, B, C, D, _ = inputs(SCAN_SHAPES[0], torch.float32)
+    try:
+        ms.mamba_scan(x.requires_grad_(True), dtr, A, B, C, D)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    checks.append({"kernel": "mamba_scan", "check": "raises under autograd", "ok": refused})
+    if not all(c["ok"] for c in checks):
+        emit({"phase": "kernels_scan", "ok": False, "checks": checks})
+        raise AssertionError("the scan kernel disagrees with its plain version")
+
+    timing = {}
+    for arch, shape in SCAN_SERVE.items():
+        x, dtr, A, B, C, D, _ = inputs(shape, torch.bfloat16)
+        b_ms, b_by = scan_bound(*shape, elt=2)
+        kernel = lambda: ms.mamba_scan(x, dtr, A, B, C, D)
+        timing[arch] = dict(
+            ms=cuda_ms(kernel), eager_ms=eager_ms(kernel),
+            # the plain version is a loop of S steps: fewer calls per graph
+            plain_ms=cuda_ms(lambda: ms.mamba_scan_plain(x, dtr, A, B, C, D), iters=2, reps=3),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=list(shape),
+            exps=shape[0] * shape[1] * shape[2] * shape[3])
+    emit({"phase": "kernels_scan", "ok": True, "checks": checks, "timing_bf16": timing,
+          "library": "none: no single PyTorch call computes the selective scan"})
+    return {**timing[SSM_ARCH], "max_abs_err": row_err, "by_arch": timing}
+
+
+def phase_serve(torch, phase, arch, counters, per_prefill, per_step, shares) -> dict:
+    """Full-width ``arch`` (bf16, random weights from a seed) through
+    ``ServingEngine``.  Every kernel's counter is set to 0 just before the
+    counted run and read just after; kernel k must have launched
+    ``per_prefill[k]`` times per prefill plus ``per_step[k]`` per decode
+    step (0 where absent).  ``shares``: label -> (launches per prefill or
+    step, the kernel's device ms, "prefill" or "decode"), each printed as
+    a share of the host-clock prefill or step time."""
+    import gc
+
     import numpy as np
-    cfg = get_config(ARCH)
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Request, ServingEngine
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
     eng = ServingEngine(cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
                         prompt_len=PROMPT_LEN, seed=0)
     lm, times = eng.lm, {"prefill": [], "decode": []}
@@ -337,52 +459,56 @@ def phase_serve(torch, get_config, Request, ServingEngine, fa, dec, kernels) -> 
     reqs = requests(N_REQUESTS)
     for r in reqs:
         eng.submit(r)
-    fa.flash_attention.launches = 0
-    dec.decode_attention.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stats = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention_fwd": fa.flash_attention.launches,
-                "decode_attention": dec.decode_attention.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: per_prefill.get(name, 0) * stats["prefills"]
+            + per_step.get(name, 0) * stats["decode_steps"] for name in counters}
 
     generated = sum(len(r.out_tokens) for r in reqs)
     prefill_ms = 1e3 * sum(times["prefill"]) / len(times["prefill"])
     decode_ms = 1e3 * sum(times["decode"]) / len(times["decode"])
-    out = {"phase": "serve", "arch": ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+    out = {"phase": phase, "arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "dtype": cfg.param_dtype, "max_batch": MAX_BATCH, "max_len": MAX_LEN,
            "prompt_len": PROMPT_LEN, "requests": N_REQUESTS, "stats": stats,
-           "launches": launches, "generated_tokens": generated, "wall_s": wall,
-           "prefill_ms_per_request": prefill_ms, "decode_ms_per_step": decode_ms,
-           "generated_tokens_per_s": generated / wall,
-           # the attention kernels' device time (kernels phase) per layer,
-           # as a share of the host-clock prefill / decode-step time
-           "flash_share_of_prefill":
-               cfg.n_layers * kernels["flash_attention_fwd"]["ms"] / prefill_ms,
-           "decode_attention_share_of_step":
-               cfg.n_layers * kernels["decode_attention"]["ms"] / decode_ms,
+           "launches": launches, "launches_wanted": want, "generated_tokens": generated,
+           "wall_s": wall, "prefill_ms_per_request": prefill_ms,
+           "decode_ms_per_step": decode_ms, "generated_tokens_per_s": generated / wall,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           # a kernel's device time (kernels phases) times its launches per
+           # prefill or step, as a share of the host-clock prefill or step
+           **{label: n * ms / (prefill_ms if which == "prefill" else decode_ms)
+              for label, (n, ms, which) in shares.items()},
            "first_tokens": [r.out_tokens[:8] for r in reqs[:2]]}
     problems = []
     if stats["completed"] != N_REQUESTS:
         problems.append(f"completed {stats['completed']} of {N_REQUESTS}")
-    if launches["flash_attention_fwd"] != cfg.n_layers * stats["prefills"]:
-        problems.append(f"flash launches {launches} for {stats['prefills']} prefills")
-    if launches["decode_attention"] != cfg.n_layers * stats["decode_steps"]:
-        problems.append(f"decode launches {launches} for {stats['decode_steps']} steps")
+    if launches != want:
+        problems.append(f"launches {launches}, want {want} for {stats['prefills']} "
+                        f"prefills and {stats['decode_steps']} decode steps")
     if not all(len(r.out_tokens) == NEW_TOKENS
                and all(0 <= t < cfg.padded_vocab for t in r.out_tokens) for r in reqs):
         problems.append("a request's tokens are short or out of range")
     emit({**out, "ok": not problems})
     if problems:
         raise AssertionError("; ".join(problems))
+    del eng, lm
+    gc.collect()                 # the timed wrappers hold the model in a cycle
+    torch.cuda.empty_cache()
     return launches
 
 
-def phase_parity(torch, get_config, LM) -> None:
-    """Full width, f32: the card against the CPU on the same weights."""
+def phase_parity(torch, get_config, LM, arch=ARCH, n_layers=None, phase="parity") -> None:
+    """Full width, f32: the card against the CPU on the same weights, at the
+    config's depth or ``n_layers``."""
     import numpy as np
-    cfg = replace(get_config(ARCH), param_dtype="float32", compute_dtype="float32")
+    cfg = replace(get_config(arch), param_dtype="float32", compute_dtype="float32",
+                  n_layers=n_layers or get_config(arch).n_layers)
     cpu_lm, gpu_lm = LM(cfg, device="cpu"), LM(cfg)
     cpu_params = cpu_lm.init(seed=1)
     gpu_params = {k: ({kk: vv.to("cuda") for kk, vv in v.items()}
@@ -405,14 +531,14 @@ def phase_parity(torch, get_config, LM) -> None:
     cl, ct = run(cpu_lm, cpu_params, "cpu")
     rel = ((gl - cl).abs().max() / cl.abs().max()).item()
     ok = rel < 1e-3 and gt == ct and bool(torch.isfinite(gl).all())
-    emit({"phase": "parity", "arch": ARCH, "dtype": "float32", "prompt_len": 64,
-          "decode_steps": 4, "logits_rel_max_err": rel, "tol": 1e-3,
+    emit({"phase": phase, "arch": arch, "n_layers": cfg.n_layers, "dtype": "float32",
+          "prompt_len": 64, "decode_steps": 4, "logits_rel_max_err": rel, "tol": 1e-3,
           "tokens_cuda": gt, "tokens_cpu": ct, "ok": ok})
     if not ok:
         raise AssertionError("card and CPU disagree")
 
 
-def phase_train(torch, get_config, fa, fb, bwd) -> dict:
+def phase_train(torch, get_config, counters, bwd) -> dict:
     """Full-width training through the loop, then a restart at reduced
     depth.  Returns the main run's launch counts."""
     import tempfile
@@ -421,15 +547,14 @@ def phase_train(torch, get_config, fa, fb, bwd) -> dict:
     stamps = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
         torch.cuda.reset_peak_memory_stats()
-        fa.flash_attention.launches = 0
-        fb.flash_attention_bwd.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
         t0 = time.perf_counter()
         rep = train(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=TRAIN_STEPS,
                     ckpt_dir=ckpt, ckpt_every=TRAIN_STEPS, seed=0, device="cuda",
                     on_step=lambda step, loss: stamps.append(time.perf_counter()))
         torch.cuda.synchronize()
-        launches = {"flash_attention_fwd": fa.flash_attention.launches,
-                    "flash_attention_bwd": fb.flash_attention_bwd.launches}
+        launches = {name: fn.launches for name, fn in counters.items()}
         wall = time.perf_counter() - t0
         saved = sorted(os.listdir(ckpt))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -439,7 +564,8 @@ def phase_train(torch, get_config, fa, fb, bwd) -> dict:
     attn_ms = n_layers * (2 * bwd["fwd_ms"] + bwd["ms"])      # per step, by device time
     ln_vocab = math.log(cfg.padded_vocab)
     problems = []
-    if launches != {"flash_attention_fwd": 2 * n_layers * TRAIN_STEPS,
+    if launches != {**dict.fromkeys(counters, 0),
+                    "flash_attention_fwd": 2 * n_layers * TRAIN_STEPS,
                     "flash_attention_bwd": n_layers * TRAIN_STEPS}:
         problems.append(f"launches {launches}, want 2·L·steps forward and L·steps backward")
     if not all(math.isfinite(x) for x in rep.losses) or len(rep.losses) != TRAIN_STEPS:
@@ -588,7 +714,30 @@ def phase_launcher(torch) -> None:
         raise AssertionError("; ".join(problems))
 
 
+def phase_serve_launcher(torch) -> None:
+    """The serving launcher as a user runs it, on the hybrid at full width:
+    exit 0 and every request completed."""
+    import ast
+    torch.cuda.empty_cache()        # the launcher is another process on the same card
+    cmd = [sys.executable, "-u", "-m", "repro_torch.launch.serve", "--arch", HYBRID_ARCH,
+           "--full-config"]
+    t0 = time.perf_counter()
+    rc, lines = _run_launcher(cmd)
+    wall = time.perf_counter() - t0
+    stats = [ast.literal_eval(line.removeprefix("stats: ")) for _, line in lines
+             if line.startswith("stats: ")]
+    n = 8                           # the launcher's default request count
+    ok = rc == 0 and len(stats) == 1 and stats[0]["completed"] == n
+    emit({"phase": "serve_launcher", "command": "python " + " ".join(cmd[1:]), "rc": rc,
+          "stats": stats[0] if stats else None, "requests": n, "wall_s": wall,
+          "last_lines": [line for _, line in lines[-5:]], "ok": ok})
+    if not ok:
+        raise AssertionError(f"serve launcher: rc {rc}, stats {stats}")
+
+
 def main() -> int:
+    import gc
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -598,8 +747,8 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.models.transformer import LM
-    from repro_torch.serving import Request, ServingEngine
 
     card = smi()
     print(card, flush=True)
@@ -614,26 +763,56 @@ def main() -> int:
           "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                          "cudnn": torch.backends.cudnn.allow_tf32}})
 
+    counters = {"flash_attention_fwd": fa.flash_attention,
+                "decode_attention": dec.decode_attention,
+                "flash_attention_bwd": fb.flash_attention_bwd,
+                "mamba_scan": ms.mamba_scan}
     kernels = phase_kernels(torch, fa, dec)
     kernels["flash_attention_bwd"] = phase_kernels_bwd(torch, fa, fb)
-    serve = phase_serve(torch, get_config, Request, ServingEngine, fa, dec, kernels)
+    kernels["mamba_scan"] = phase_kernels_scan(torch, ms)
+    scan_ms = kernels["mamba_scan"]["by_arch"]
+
+    # the main paths, each run with every counter set to 0 just before it
+    runs = []
+    qwen = get_config(ARCH)
+    runs.append(phase_serve(
+        torch, "serve", ARCH, counters, {"flash_attention_fwd": qwen.n_layers},
+        {"decode_attention": qwen.n_layers},
+        {"flash_share_of_prefill": (qwen.n_layers, kernels["flash_attention_fwd"]["ms"],
+                                    "prefill"),
+         "decode_attention_share_of_step": (qwen.n_layers, kernels["decode_attention"]["ms"],
+                                            "decode")}))
     phase_parity(torch, get_config, LM)
-    trained = phase_train(torch, get_config, fa, fb, kernels["flash_attention_bwd"])
+    falcon = get_config(SSM_ARCH)
+    runs.append(phase_serve(
+        torch, "serve_ssm", SSM_ARCH, counters, {"mamba_scan": falcon.n_layers}, {},
+        {"scan_share_of_prefill": (falcon.n_layers, scan_ms[SSM_ARCH]["ms"], "prefill")}))
+    zamba = get_config(HYBRID_ARCH)
+    n_apps = zamba.n_layers // zamba.shared_attn_every
+    runs.append(phase_serve(
+        torch, "serve_hybrid", HYBRID_ARCH, counters,
+        {"mamba_scan": zamba.n_layers, "flash_attention_fwd": n_apps},
+        {"decode_attention": n_apps},
+        {"scan_share_of_prefill": (zamba.n_layers, scan_ms[HYBRID_ARCH]["ms"], "prefill")}))
+    for arch, n_layers in SSM_PARITY_LAYERS.items():
+        phase_parity(torch, get_config, LM, arch, n_layers, phase="ssm_parity")
+        gc.collect()
+        torch.cuda.empty_cache()
+    runs.append(phase_train(torch, get_config, counters, kernels["flash_attention_bwd"]))
     phase_train_parity(torch, get_config, LM)
     phase_launcher(torch)
-    # each kernel's launches on the main paths' counted runs: forward on
-    # serve and train, decode on serve, backward on train
-    launches = {"flash_attention_fwd": serve["flash_attention_fwd"]
-                + trained["flash_attention_fwd"],
-                "decode_attention": serve["decode_attention"],
-                "flash_attention_bwd": trained["flash_attention_bwd"]}
+    phase_serve_launcher(torch)
+    # each kernel's launches summed over the main paths' counted runs
+    launches = {name: sum(run[name] for run in runs) for name in counters}
 
     replaces = {"flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                         "src/repro/kernels/flash_attention.py:25"),
                 "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                      "src/repro/kernels/decode_attention.py:24"),
                 "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-                                        "src/repro/kernels/flash_attention_bwd.py:30")}
+                                        "src/repro/kernels/flash_attention_bwd.py:30"),
+                "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
+                               "src/repro/kernels/mamba_scan.py:26")}
     print(card, flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": replaces[name][0],

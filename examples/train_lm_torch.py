@@ -49,7 +49,7 @@ def main() -> None:
     if args.backend != "loop":
         raise NotImplementedError(
             f"--backend {args.backend} is not ported yet: ROADMAP.md Queue 1, "
-            "'Slice 3: training under the Myrmics runtime'")
+            "'Slice 5: training of the dense family under the Myrmics runtime'")
     if args.arch is None:
         cfg = default_20m()
     else:

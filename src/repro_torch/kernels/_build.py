@@ -33,6 +33,7 @@ SIGNATURES = {
     "decode_attention": [I, I, P, P, P, P, I, P, I, I, I, I]
                         + [LL] * 10 + [F, P],
     "flash_attention_bwd": [I, I] + [P] * 11 + [I] * 5 + [LL] * 24 + [I, I, F, P],
+    "mamba_scan": [I, I] + [P] * 9 + [I, I, I] + [LL] * 8 + [P],
 }
 
 

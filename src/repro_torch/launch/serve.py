@@ -1,8 +1,11 @@
 """Serving launcher (batched prefill + continuous-batching decode).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b -n 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b --full-config
 
-Runs on the GPU unless ``--device cpu`` is given.
+Runs on the GPU unless ``--device cpu`` is given; the smoke config
+unless ``--full-config`` is given.  Exits non-zero unless every request
+completes.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ def main(argv: list[str] | None = None) -> None:
     print("stats:", stats)
     for r in reqs[:4]:
         print(f"req {r.rid}: {r.out_tokens}")
+    if stats["completed"] != args.requests:
+        raise SystemExit(f"completed {stats['completed']} of {args.requests} requests")
 
 
 if __name__ == "__main__":

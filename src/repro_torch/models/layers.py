@@ -1,10 +1,12 @@
-"""Model building blocks: the dense subset of ``repro.models.layers``.
+"""Model building blocks: the dense and SSM subset of
+``repro.models.layers``.
 
 Elementwise and normalisation code is plain PyTorch; the attention
-functions go through the kernels' wrappers, which launch the CUDA
-kernels for tensors on the GPU and take their plain versions for tensors
-on the CPU.  ``blocked_attention`` is differentiable through
-``FlashAttention``, whose backward is the flash-attention backward kernel.
+functions and the selective scan go through the kernels' wrappers, which
+launch the CUDA kernels for tensors on the GPU and take their plain
+versions for tensors on the CPU.  ``blocked_attention`` is differentiable
+through ``FlashAttention``, whose backward is the flash-attention
+backward kernel; the scan kernel is forward only.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from repro_torch.kernels.decode_attention import decode_attention as _decode_ker
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 from repro_torch.kernels.flash_attention import readable_rows
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd as _flash_bwd_kernel
+from repro_torch.kernels.mamba_scan import softplus
+from repro_torch.kernels.mamba_scan import mamba_scan as _scan_kernel
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -130,3 +134,58 @@ def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
            wd: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ wg) * (x @ wu)
     return h @ wd
+
+
+# -- causal depthwise conv (mamba) -------------------------------------------------
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: torch.Tensor | None = None):
+    """Depthwise causal conv.  x: (B, S, C); w: (K, C).  The sum of K
+    shifted products in x's dtype, as the JAX function takes it.
+
+    Returns (y, new_state): ``state`` carries the trailing K-1 inputs so
+    decode can stream one token at a time.
+    """
+    k = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([state, x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(k))
+    new_state = xp[:, xp.shape[1] - (k - 1):]
+    return y, new_state
+
+
+# -- selective scan (mamba) --------------------------------------------------------
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                   h0: torch.Tensor | None = None):
+    """Selective state-space scan (Mamba recurrence).
+
+    x, dt: (Bt, S, Din);  A: (Din, N);  B, C: (Bt, S, N);  D: (Din,)
+    h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * x_t;  y_t = C_t . h_t + D * x_t
+    (dt taken through softplus first).  Returns (y in x's dtype,
+    h_final (Bt, Din, N) f32).
+
+    The scan kernel walks all S steps with the state in registers, so the
+    JAX function's ``chunk`` (its memory knob) has no counterpart, and the
+    sequence is never padded: ``h_final`` is the state after step S-1 for
+    every S.  Only the f32 scan is ported (``LM`` refuses another
+    ``ssm_scan_dtype``).
+    """
+    return _scan_kernel(x, dt, A, B, C, D, h0)
+
+
+def selective_scan_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                        h: torch.Tensor):
+    """Single decode step.  x, dt: (Bt, Din); B, C: (Bt, N); h: (Bt, Din, N)
+    f32.  Returns (y in x's dtype, h_new f32)."""
+    dt = softplus(dt.float())
+    decay = torch.exp(dt[..., None] * A.float())
+    h_new = decay * h + (dt * x.float())[..., None] * B.float()[:, None, :]
+    y = torch.einsum("bdn,bn->bd", h_new, C.float()) + x.float() * D
+    return y.to(x.dtype), h_new

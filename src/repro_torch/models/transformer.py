@@ -1,26 +1,41 @@
-"""Decoder-only LM for the dense family: a port of the dense path of
-``repro.models.transformer.LM``.
+"""Decoder-only LMs of the dense, SSM and hybrid families: a port of
+those paths of ``repro.models.transformer.LM``.
 
 Parameters are a dict of tensors with the JAX tree's keys and its
 stacked leading-``L`` shapes (``blocks/wq`` is (L, D, Hq·hd)), so a JAX
 parameter tree converts key by key (``repro_torch.convert``).  The JAX
 ``lax.scan`` over layers is a Python loop over that leading axis, and
 its ``jax.checkpoint`` per layer (and per loss chunk) is
-``torch.utils.checkpoint``.  The decode cache keeps JAX's (L, B, T, Hkv,
-hd) layout but, unlike the JAX functional update, is written in place.
+``torch.utils.checkpoint``; the hybrid's ``lax.cond`` on the layer index
+is a Python ``if``.  The decode cache keeps JAX's layouts ((L, B, T, Hkv,
+hd) K/V; (L, B, Din, N) f32 SSM state and (L, B, K-1, Din) conv window;
+the hybrid's K/V per application of its shared block) but, unlike the JAX
+functional update, is written in place.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.mamba_scan import TRAINING_ITEM
 
 from .config import ModelConfig
-from .layers import apply_rope, blocked_attention, decode_attention, rms_norm, swiglu
+from .layers import (
+    apply_rope,
+    blocked_attention,
+    causal_conv1d,
+    decode_attention,
+    rms_norm,
+    selective_scan,
+    selective_scan_step,
+    swiglu,
+)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -28,11 +43,10 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 # families still to be ported, with the ROADMAP.md item that ports them
 NOT_PORTED = {
     "moe": "Queue 1, 'the other families' (MoE)",
-    "ssm": "Queue 1, 'SSM families'",
-    "hybrid": "Queue 1, 'SSM families'",
     "encdec": "Queue 1, 'the other families' (encoder-decoder)",
     "vlm": "Queue 1, 'the other families' (VLM)",
 }
+SSM_FAMILIES = ("ssm", "hybrid")
 
 
 class LM:
@@ -41,8 +55,12 @@ class LM:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet: ROADMAP.md "
                 f"{NOT_PORTED[cfg.family]}")
-        if cfg.family != "dense":
+        if cfg.family != "dense" and cfg.family not in SSM_FAMILIES:
             raise ValueError(cfg.family)
+        if cfg.family in SSM_FAMILIES and cfg.ssm_scan_dtype != "float32":
+            raise NotImplementedError(
+                f"ssm_scan_dtype={cfg.ssm_scan_dtype!r} is not ported yet: "
+                f"{TRAINING_ITEM}")
         if cfg.sharded_decode:
             raise NotImplementedError(
                 "sharded_decode is not ported yet: ROADMAP.md Queue 1, "
@@ -55,16 +73,17 @@ class LM:
     # ------------------------------------------------------------------ params
 
     def init(self, seed: int = 0) -> dict:
-        """Random parameters with the JAX init's shapes and scales (normal
-        0.02; ``wo`` 0.02/sqrt(2L); norms 1; biases 0), drawn in f32 from
-        a ``torch.Generator`` on the model's device and cast to
+        """Random parameters with the JAX init's shapes, dtypes and scales
+        (normal 0.02; ``wo`` 0.02/sqrt(2L); conv and dt_proj 0.1; norms 1;
+        biases 0; ``A_log`` = log(1..N) and ``D`` = 1 in f32), drawn in f32
+        from a ``torch.Generator`` on the model's device and cast to
         ``param_dtype``.  The draws differ from JAX's for the same seed."""
         c = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(seed)
 
         def normal(shape, scale=0.02):
             x = torch.randn(shape, generator=gen, device=self.device)
-            return (x * scale).to(self.pdt)
+            return x.mul_(scale).to(self.pdt)      # in place: one f32 copy at a time
 
         def ones(shape):
             return torch.ones(shape, dtype=self.pdt, device=self.device)
@@ -72,25 +91,52 @@ class LM:
         def zeros(shape):
             return torch.zeros(shape, dtype=self.pdt, device=self.device)
 
-        L, d, hd = c.n_layers, c.d_model, c.hd
+        L, d = c.n_layers, c.d_model
         p: dict = {"emb": normal((c.padded_vocab, d)), "out_norm": ones((d,))}
         if not c.tie_embeddings:
             p["lm_head"] = normal((d, c.padded_vocab))
-        blocks = {
-            "ln1": ones((L, d)),
-            "wq": normal((L, d, c.n_heads * hd)),
-            "wk": normal((L, d, c.n_kv_heads * hd)),
-            "wv": normal((L, d, c.n_kv_heads * hd)),
-            "wo": normal((L, c.n_heads * hd, d),
-                         scale=0.02 / math.sqrt(2 * max(L, 1))),
+        if c.family == "dense":
+            p["blocks"] = self._dense_params(normal, ones, zeros, (L,))
+            return p
+        s = c.ssm
+        din, n = s.expand * d, s.state_dim
+        dt_rank = max(1, math.ceil(d / 16))
+        a_log = torch.from_numpy(np.log(np.arange(1, n + 1, dtype=np.float32)))
+        p["blocks"] = {
+            "ln": ones((L, d)),
+            "in_proj": normal((L, d, 2 * din)),
+            "conv_w": normal((L, s.conv_dim, din), scale=0.1),
+            "x_proj": normal((L, din, dt_rank + 2 * n)),
+            "dt_proj": normal((L, dt_rank, din), scale=0.1),
+            "dt_bias": zeros((L, din)),
+            "A_log": a_log.to(self.device).expand(L, din, n).contiguous(),
+            "D": torch.ones((L, din), dtype=torch.float32, device=self.device),
+            "out_proj": normal((L, din, d)),
+        }
+        if c.family == "hybrid":
+            p["shared_attn"] = self._dense_params(normal, ones, zeros, ())
+        return p
+
+    def _dense_params(self, normal, ones, zeros, lead: tuple[int, ...]) -> dict:
+        """One attention + SwiGLU layer's leaves, stacked over ``lead``:
+        (L,) for the dense stack, () for the hybrid's shared block, whose
+        ``wo`` is scaled by the stack's depth as in the JAX init."""
+        c = self.cfg
+        d, hd = c.d_model, c.hd
+        p = {
+            "ln1": ones(lead + (d,)),
+            "wq": normal(lead + (d, c.n_heads * hd)),
+            "wk": normal(lead + (d, c.n_kv_heads * hd)),
+            "wv": normal(lead + (d, c.n_kv_heads * hd)),
+            "wo": normal(lead + (c.n_heads * hd, d),
+                         scale=0.02 / math.sqrt(2 * max(c.n_layers, 1))),
         }
         if c.qkv_bias:
-            blocks["bq"] = zeros((L, c.n_heads * hd))
-            blocks["bk"] = zeros((L, c.n_kv_heads * hd))
-            blocks["bv"] = zeros((L, c.n_kv_heads * hd))
-        blocks.update(ln2=ones((L, d)), wg=normal((L, d, c.d_ff)),
-                      wu=normal((L, d, c.d_ff)), wd=normal((L, c.d_ff, d)))
-        p["blocks"] = blocks
+            p["bq"] = zeros(lead + (c.n_heads * hd,))
+            p["bk"] = zeros(lead + (c.n_kv_heads * hd,))
+            p["bv"] = zeros(lead + (c.n_kv_heads * hd,))
+        p.update(ln2=ones(lead + (d,)), wg=normal(lead + (d, c.d_ff)),
+                 wu=normal(lead + (d, c.d_ff)), wd=normal(lead + (c.d_ff, d)))
         return p
 
     @staticmethod
@@ -128,18 +174,59 @@ class LM:
         x = x + o.reshape(b, s, -1) @ bp["wo"]
         return self._mlp(bp, x), k, v
 
-    # ------------------------------------------------------------ forward (train / prefill-style)
+    def _shared_after(self, i: int) -> bool:
+        """Whether the hybrid's shared block runs after SSM layer ``i``."""
+        c = self.cfg
+        return c.family == "hybrid" and (i + 1) % c.shared_attn_every == 0
 
-    def _train_block(self, bp: dict, x: torch.Tensor,
-                     positions: torch.Tensor) -> torch.Tensor:
-        return self._block(bp, x, positions)[0]
+    # ------------------------------------------------------------------ SSM pieces
+
+    def _ssm_in(self, bp: dict, x: torch.Tensor, conv0: torch.Tensor | None):
+        """The Mamba block up to the scan: (xi, dt, A, B, C, z, conv_fin),
+        rounded in the compute dtype where the JAX block rounds them."""
+        c = self.cfg
+        n, din = c.ssm.state_dim, c.ssm.expand * c.d_model
+        dt_rank = bp["dt_proj"].shape[-2]
+        h = rms_norm(x, bp["ln"], c.norm_eps)
+        xz = h @ bp["in_proj"]
+        xi, z = xz[..., :din], xz[..., din:]
+        xi, conv_fin = causal_conv1d(xi, bp["conv_w"], conv0)
+        xi = F.silu(xi)
+        proj = xi @ bp["x_proj"]
+        dt = proj[..., :dt_rank] @ bp["dt_proj"] + bp["dt_bias"]
+        B = proj[..., dt_rank:dt_rank + n]
+        C = proj[..., dt_rank + n:]
+        A = -torch.exp(bp["A_log"])
+        return xi, dt, A, B, C, z, conv_fin
+
+    def _ssm_block(self, bp: dict, x: torch.Tensor):
+        """Mamba block over a full sequence from a zero state.  Returns
+        (x, h_fin (B, Din, N) f32, conv_fin (B, K-1, Din))."""
+        xi, dt, A, B, C, z, conv_fin = self._ssm_in(bp, x, None)
+        y, h_fin = selective_scan(xi, dt, A, B, C, bp["D"])
+        return x + (y * F.silu(z)) @ bp["out_proj"], h_fin, conv_fin
+
+    def _ssm_decode(self, bp: dict, x1: torch.Tensor, h: torch.Tensor,
+                    conv: torch.Tensor) -> torch.Tensor:
+        """One-token Mamba block.  x1: (B, 1, D); ``h`` (B, Din, N) f32 and
+        ``conv`` (B, K-1, Din), one layer's cache, are updated in place."""
+        xi, dt, A, B, C, z, conv_new = self._ssm_in(bp, x1, conv)
+        y, h_new = selective_scan_step(xi[:, 0], dt[:, 0], A, B[:, 0], C[:, 0],
+                                       bp["D"], h)
+        h.copy_(h_new)
+        conv.copy_(conv_new)
+        return x1 + (y[:, None] * F.silu(z)) @ bp["out_proj"]
+
+    # ------------------------------------------------------------ forward (train / prefill-style)
 
     def forward(self, params: dict, batch: dict,
                 remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
         """Returns (final hidden states (B, S, D), aux loss scalar f32; 0
-        for the dense family).  Differentiable; with ``remat`` each layer
-        is checkpointed, so only its input is kept for the backward and
-        the layer (its attention kernel included) runs again there."""
+        for these families).  Differentiable on the CPU, and on the card
+        for the dense family (the scan kernel has no backward yet); with
+        ``remat`` each layer is checkpointed, so only its input is kept
+        for the backward and the layer (its kernels included) runs again
+        there."""
         c = self.cfg
         tokens = batch["tokens"]
         x = params["emb"][tokens].to(self.cdt)
@@ -149,13 +236,25 @@ class LM:
         # in one pass instead of adding L zero-padded copies
         names = list(params["blocks"])
         per_layer = zip(*(params["blocks"][k].unbind(0) for k in names))
-        for leaves in per_layer:
-            bp = dict(zip(names, leaves))
+
+        def attn_layer(bp, x):
+            return self._block(bp, x, positions)[0]
+
+        def ssm_layer(bp, x):
+            return self._ssm_block(bp, x)[0]
+
+        def layer(fn, bp, x):
             if remat:
-                x = checkpoint(self._train_block, bp, x, positions,
-                               use_reentrant=False)
-            else:
-                x = self._train_block(bp, x, positions)
+                return checkpoint(fn, bp, x, use_reentrant=False)
+            return fn(bp, x)
+
+        # the stack's layers are attention + MLP for the dense family and
+        # Mamba blocks otherwise; the hybrid's shared block is attention
+        stack_layer = attn_layer if c.family == "dense" else ssm_layer
+        for i, leaves in enumerate(per_layer):
+            x = layer(stack_layer, dict(zip(names, leaves)), x)
+            if self._shared_after(i):
+                x = layer(attn_layer, params["shared_attn"], x)
         return rms_norm(x, params["out_norm"], c.norm_eps), aux
 
     # ------------------------------------------------------------------ loss
@@ -197,10 +296,24 @@ class LM:
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         c = self.cfg
-        kv = (c.n_layers, batch, max_len, c.n_kv_heads, c.hd)
-        return {"len": torch.zeros((), dtype=torch.int32, device=self.device),
-                "k": torch.zeros(kv, dtype=self.cdt, device=self.device),
-                "v": torch.zeros(kv, dtype=self.cdt, device=self.device)}
+        dev = self.device
+        cache = {"len": torch.zeros((), dtype=torch.int32, device=dev)}
+        if c.family == "dense":
+            n_kv = c.n_layers
+        else:
+            s = c.ssm
+            din = s.expand * c.d_model
+            cache["h"] = torch.zeros((c.n_layers, batch, din, s.state_dim),
+                                     dtype=torch.float32, device=dev)
+            cache["conv"] = torch.zeros((c.n_layers, batch, s.conv_dim - 1, din),
+                                        dtype=self.cdt, device=dev)
+            if c.family == "ssm":
+                return cache
+            n_kv = c.n_layers // c.shared_attn_every    # one per application
+        kv = (n_kv, batch, max_len, c.n_kv_heads, c.hd)
+        cache["k"] = torch.zeros(kv, dtype=self.cdt, device=dev)
+        cache["v"] = torch.zeros(kv, dtype=self.cdt, device=dev)
+        return cache
 
     def _attn_decode(self, bp: dict, x1: torch.Tensor, kc: torch.Tensor,
                      vc: torch.Tensor, pos: torch.Tensor,
@@ -221,16 +334,24 @@ class LM:
     @torch.no_grad()
     def decode_step(self, params: dict, cache: dict,
                     token: torch.Tensor) -> tuple[dict, torch.Tensor]:
-        """token: (B,) int -> (cache, logits (B, V) f32).  The cache's k/v
-        are updated in place; ``len`` is advanced by one."""
+        """token: (B,) int -> (cache, logits (B, V) f32).  The cache's
+        tensors are updated in place; ``len`` is advanced by one."""
         c = self.cfg
         length = cache["len"]
         pos, n_live = length.reshape(1).long(), length + 1
         x = params["emb"][token][:, None].to(self.cdt)       # (B, 1, D)
         for i in range(c.n_layers):
             bp = self._layer(params, i)
-            x = self._attn_decode(bp, x, cache["k"][i], cache["v"][i], pos, n_live)
-            x = self._mlp(bp, x)
+            if c.family == "dense":
+                x = self._attn_decode(bp, x, cache["k"][i], cache["v"][i], pos, n_live)
+                x = self._mlp(bp, x)
+                continue
+            x = self._ssm_decode(bp, x, cache["h"][i], cache["conv"][i])
+            if self._shared_after(i):
+                app, shared = i // c.shared_attn_every, params["shared_attn"]
+                x = self._attn_decode(shared, x, cache["k"][app], cache["v"][app],
+                                      pos, n_live)
+                x = self._mlp(shared, x)
         x = rms_norm(x, params["out_norm"], c.norm_eps)
         logits = (x[:, 0] @ self.lm_head(params)).float()
         cache["len"] = n_live
@@ -250,9 +371,20 @@ class LM:
         positions = torch.arange(s, device=self.device)
         x = params["emb"][tokens].to(self.cdt)
         for i in range(c.n_layers):
-            x, k, v = self._block(self._layer(params, i), x, positions)
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+            bp = self._layer(params, i)
+            if c.family == "dense":
+                x, k, v = self._block(bp, x, positions)
+                cache["k"][i, :, :s] = k
+                cache["v"][i, :, :s] = v
+                continue
+            x, h_fin, conv_fin = self._ssm_block(bp, x)
+            cache["h"][i] = h_fin
+            cache["conv"][i] = conv_fin
+            if self._shared_after(i):
+                app = i // c.shared_attn_every
+                x, k, v = self._block(params["shared_attn"], x, positions)
+                cache["k"][app, :, :s] = k
+                cache["v"][app, :, :s] = v
         x = rms_norm(x, params["out_norm"], c.norm_eps)
         logits = (x[:, -1] @ self.lm_head(params)).float()
         cache["len"].fill_(s)

@@ -5,6 +5,7 @@ import ast
 import os
 import subprocess
 import sys
+from dataclasses import replace
 from pathlib import Path
 
 import pytest
@@ -16,6 +17,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd  # noqa: E402
+from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.transformer import LM  # noqa: E402
@@ -86,9 +88,16 @@ def test_cpu_only_when_asked():
 
 
 def test_non_dense_families_name_their_roadmap_item():
-    for arch in ("falcon_mamba_7b", "granite_moe_3b", "whisper_base"):
+    for arch in ("llama32_vision_90b", "granite_moe_3b", "whisper_base"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             LM(get_config(arch).smoke(), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "zamba2_2_7b"])
+def test_ssm_families_construct_and_a_bf16_scan_names_its_roadmap_item(arch):
+    assert LM(get_config(arch).smoke(), device="cpu").cfg.family in ("ssm", "hybrid")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md .*SSM training"):
+        LM(replace(get_config(arch).smoke(), ssm_scan_dtype="bfloat16"), device="cpu")
 
 
 def test_wrappers_take_plain_version_only_for_cpu_tensors():
@@ -103,6 +112,10 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors():
         decode_attention(q[:, :1], k, k, torch.zeros((), dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_bwd(q, k, k, q, q, torch.empty((1, 2, 8), device="meta"), True)
+    x = torch.empty((1, 8, 16), device="meta")
+    A, bc = torch.empty((16, 4), device="meta"), torch.empty((1, 8, 4), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        mamba_scan(x, x, A, bc, bc, torch.empty((16,), device="meta"))
 
 
 def test_build_raises_without_nvcc(monkeypatch):
