@@ -9,10 +9,12 @@ prints no result line:
 1. env      -- card, power limit, versions; builds the CUDA kernels.
 2. kernels  -- each attention kernel against its plain version on the
                card, at the main paths' shapes (qwen2-0.5B's and
-               zamba2-2.7B's shared block's, head dim 80) and the JAX
-               kernel tests' shapes, f32 and bf16; times at the serve
-               path's shapes (forward, decode) and the training shape
-               (backward).  Then the scan kernel against its plain
+               zamba2-2.7B's shared block's, head dim 80), the JAX kernel
+               tests' shapes and the other head dims the kernels take
+               (16, 128), f32 and bf16.  Times at the serve path's
+               shapes (forward; decode at qwen2-0.5B's and zamba2-2.7B's)
+               and the training shape (backward).  Then the scan kernel
+               against its plain
                version (y and h_final, with and without h0, f32 and bf16)
                at the JAX scan test's shapes and both SSM serve shapes,
                its refusal under autograd, and its times.
@@ -45,6 +47,11 @@ prints no result line:
                second finds the last step saved and runs none.
 10. serve_launcher -- ``python -m repro_torch.launch.serve --arch
                zamba2_2_7b --full-config``: exit 0, every request done.
+11. examples -- the smoke configs (head dim 16) as a user runs them:
+               ``examples/serve_lm_torch.py`` at its defaults, ``python -m
+               repro_torch.launch.serve --arch qwen2_0_5b`` and
+               ``examples/train_lm_torch.py --arch qwen2_0_5b --smoke
+               --steps 20``: exit 0, every request done, losses falling.
 
 Every counted run (3, 5, 7) sets every kernel's launch counter to 0
 just before it and reads all of them just after.  The line before the
@@ -72,13 +79,20 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX kernel tests' tolerances
 
-# the JAX kernel tests' shapes (tests/test_kernels.py)
+# the JAX kernel tests' shapes (tests/test_kernels.py), then the head dims
+# they leave out: 16 (every smoke config) and 128 (chatglm3-6B, yi-6B; at
+# decode with chatglm3-6B's group of 16, the kernel's limit)
 FA_SHAPES = [(1, 64, 64, 1, 1, 32), (2, 128, 128, 4, 2, 64),
-             (1, 100, 100, 8, 8, 64), (2, 64, 192, 4, 1, 48)]
-DEC_SHAPES = [(1, 128, 1, 1, 32), (2, 256, 4, 2, 64), (3, 300, 8, 4, 48)]
+             (1, 100, 100, 8, 8, 64), (2, 64, 192, 4, 1, 48),
+             (2, 64, 64, 4, 2, 16), (1, 100, 130, 8, 1, 128)]
+DEC_SHAPES = [(1, 128, 1, 1, 32), (2, 256, 4, 2, 64), (3, 300, 8, 4, 48),
+              (2, 128, 4, 2, 16), (2, 300, 16, 1, 128)]
 
-# the JAX backward tests' shapes and a cross length (B, S, T, Hq, Hkv, D)
-BWD_SHAPES = [(2, 64, 64, 4, 2, 32), (1, 96, 96, 8, 8, 64), (2, 64, 192, 4, 1, 48)]
+# the JAX backward tests' shapes and a cross length (B, S, T, Hq, Hkv, D),
+# then head dims 16, 80 (zamba2-2.7B's shared block: group 1) and 128
+# (ragged tiles, a cross length)
+BWD_SHAPES = [(2, 64, 64, 4, 2, 32), (1, 96, 96, 8, 8, 64), (2, 64, 192, 4, 1, 48),
+              (2, 64, 64, 4, 2, 16), (1, 96, 96, 4, 4, 80), (1, 100, 130, 8, 2, 128)]
 
 # the serve phases: full width, 8 requests in rounds of 4
 ARCH, MAX_BATCH, MAX_LEN, PROMPT_LEN = "qwen2_0_5b", 4, 512, 256
@@ -106,6 +120,9 @@ RESTART_LAYERS, PARITY_LAYERS, PARITY_SEQ = 2, 2, 64
 # the launcher phase: the launcher's defaults
 LAUNCH_STEPS, LAUNCH_CKPT_EVERY, LAUNCH_SEQ, LAUNCH_BATCH = 20, 10, 128, 4
 LAUNCH_TIMEOUT_S = 600
+# the examples phase: the smoke configs (head dim 16); the serving example's
+# and the launcher's default request counts
+EXAMPLE_STEPS, EXAMPLE_REQUESTS, LAUNCHER_REQUESTS = 20, 10, 8
 
 
 def emit(obj) -> None:
@@ -247,21 +264,26 @@ def phase_kernels(torch, fa, dec) -> dict:
             qt, kt, vt, is_causal=True, enable_gqa=True)),
         bound_ms=fa_bound, bound_by=fa_by, shape=[b, s, t, hq, hkv, d])}
 
-    b, t, hq, hkv, d = slice_dec
     n = PROMPT_LEN + NEW_TOKENS // 2          # a mid-round decode length
-    q, kc, vc = randn(b, 1, hq, d, dtype=dt), randn(b, t, hkv, d, dtype=dt), \
-        randn(b, t, hkv, d, dtype=dt)
-    length = torch.tensor(n, dtype=torch.int32, device="cuda")
-    qt, kt, vt = q.transpose(1, 2), kc[:, :n].transpose(1, 2), vc[:, :n].transpose(1, 2)
-    dec_bound, dec_by = bound((2 * b * hq * d + 2 * b * n * hkv * d) * elt,
-                              4 * b * hq * d * n, "bfloat16")
-    kernel = lambda: dec.decode_attention(q, kc, vc, length)
-    timing["decode_attention"] = dict(
-        ms=cuda_ms(kernel), eager_ms=eager_ms(kernel),
-        plain_ms=cuda_ms(lambda: dec.decode_attention_plain(q, kc, vc, length)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                  enable_gqa=True)),
-        bound_ms=dec_bound, bound_by=dec_by, shape=[b, t, hq, hkv, d], length=n)
+    by_arch = {}
+    for arch, shape in ((ARCH, slice_dec), (HYBRID_ARCH, HYBRID_DEC)):
+        b, t, hq, hkv, d = shape
+        q, kc, vc = randn(b, 1, hq, d, dtype=dt), randn(b, t, hkv, d, dtype=dt), \
+            randn(b, t, hkv, d, dtype=dt)
+        length = torch.tensor(n, dtype=torch.int32, device="cuda")
+        qt, kt, vt = q.transpose(1, 2), kc[:, :n].transpose(1, 2), vc[:, :n].transpose(1, 2)
+        dec_bound, dec_by = bound((2 * b * hq * d + 2 * b * n * hkv * d) * elt,
+                                  4 * b * hq * d * n, "bfloat16")
+        kernel = lambda: dec.decode_attention(q, kc, vc, length)
+        by_arch[arch] = dict(
+            ms=cuda_ms(kernel), eager_ms=eager_ms(kernel),
+            plain_ms=cuda_ms(lambda: dec.decode_attention_plain(q, kc, vc, length)),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                      enable_gqa=True)),
+            bound_ms=dec_bound, bound_by=dec_by, shape=[b, t, hq, hkv, d], length=n,
+            n_split=dec.decode_splits(b, t, hkv, torch.cuda.get_device_properties(0)
+                                      .multi_processor_count))
+    timing["decode_attention"] = {**by_arch[ARCH], "by_arch": by_arch}
     emit({"phase": "kernels", "ok": True, "checks": checks, "timing_bf16": timing})
     return {name: {**timing[name], "max_abs_err": errs[name]} for name in timing}
 
@@ -714,18 +736,24 @@ def phase_launcher(torch) -> None:
         raise AssertionError("; ".join(problems))
 
 
+def _stats(lines) -> list[dict]:
+    """The ``stats: {...}`` dicts a serving script printed."""
+    import ast
+    import re
+    return [ast.literal_eval(m[1]) for _, line in lines
+            if (m := re.match(r"^stats: (\{.*\})", line))]
+
+
 def phase_serve_launcher(torch) -> None:
     """The serving launcher as a user runs it, on the hybrid at full width:
     exit 0 and every request completed."""
-    import ast
     torch.cuda.empty_cache()        # the launcher is another process on the same card
     cmd = [sys.executable, "-u", "-m", "repro_torch.launch.serve", "--arch", HYBRID_ARCH,
            "--full-config"]
     t0 = time.perf_counter()
     rc, lines = _run_launcher(cmd)
     wall = time.perf_counter() - t0
-    stats = [ast.literal_eval(line.removeprefix("stats: ")) for _, line in lines
-             if line.startswith("stats: ")]
+    stats = _stats(lines)
     n = 8                           # the launcher's default request count
     ok = rc == 0 and len(stats) == 1 and stats[0]["completed"] == n
     emit({"phase": "serve_launcher", "command": "python " + " ".join(cmd[1:]), "rc": rc,
@@ -733,6 +761,47 @@ def phase_serve_launcher(torch) -> None:
           "last_lines": [line for _, line in lines[-5:]], "ok": ok})
     if not ok:
         raise AssertionError(f"serve launcher: rc {rc}, stats {stats}")
+
+
+def phase_examples(torch) -> None:
+    """The smoke configs (head dim 16) on the card as a user runs them:
+    the serving example at its defaults, the serving launcher without
+    ``--full-config``, and the training example for a few steps into a
+    fresh checkpoint directory.  Each must exit 0; each serving run must
+    complete every request, and the training run must report its losses
+    (it exits non-zero when the loss does not fall)."""
+    import tempfile
+    torch.cuda.empty_cache()        # the scripts are other processes on the same card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_example_") as ckpt:
+        runs = {
+            "serve_example": ([sys.executable, "-u", "examples/serve_lm_torch.py"],
+                              EXAMPLE_REQUESTS),
+            "serve_launcher": ([sys.executable, "-u", "-m", "repro_torch.launch.serve",
+                                "--arch", ARCH], LAUNCHER_REQUESTS),
+            "train_example": ([sys.executable, "-u", "examples/train_lm_torch.py", "--arch",
+                               ARCH, "--smoke", "--steps", str(EXAMPLE_STEPS), "--ckpt-dir",
+                               ckpt], None),
+        }
+        results, problems = {}, []
+        for name, (cmd, n_requests) in runs.items():
+            t0 = time.perf_counter()
+            rc, lines = _run_launcher(cmd)
+            stats = _stats(lines)
+            results[name] = {"command": "python " + " ".join(cmd[1:]), "rc": rc,
+                             "wall_s": time.perf_counter() - t0,
+                             "stats": stats[0] if stats else None,
+                             "last_lines": [line for _, line in lines[-4:]]}
+            if rc != 0:
+                problems.append(f"{name}: rc {rc}")
+            if n_requests is not None and (len(stats) != 1
+                                           or stats[0]["completed"] != n_requests):
+                problems.append(f"{name}: stats {stats}, want {n_requests} completed")
+            if n_requests is None and not any(line.startswith("done: first loss")
+                                              for _, line in lines):
+                problems.append(f"{name}: no 'done' line")
+    emit({"phase": "examples", "head_dim": 16, "runs": results, "ok": not problems})
+    if problems:
+        raise AssertionError("; ".join(problems))
 
 
 def main() -> int:
@@ -802,6 +871,7 @@ def main() -> int:
     phase_train_parity(torch, get_config, LM)
     phase_launcher(torch)
     phase_serve_launcher(torch)
+    phase_examples(torch)
     # each kernel's launches summed over the main paths' counted runs
     launches = {name: sum(run[name] for run in runs) for name in counters}
 

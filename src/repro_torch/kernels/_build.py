@@ -30,7 +30,7 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "flash_attention_fwd": [I, I, P, P, P, P, P, I, I, I, I, I]
                            + [LL] * 12 + [I, I, I, F, P],
-    "decode_attention": [I, I, P, P, P, P, I, P, I, I, I, I]
+    "decode_attention": [I, I, P, P, P, P, I, P, I, I, I, I, I]
                         + [LL] * 10 + [F, P],
     "flash_attention_bwd": [I, I] + [P] * 11 + [I] * 5 + [LL] * 24 + [I, I, F, P],
     "mamba_scan": [I, I] + [P] * 9 + [I, I, I] + [LL] * 8 + [P],

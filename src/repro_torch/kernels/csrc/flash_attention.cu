@@ -99,12 +99,13 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(FlashArgs a) {
       *reinterpret_cast<float4*>(vs + r * D + c) = vx;
     }
     __syncthreads();
-    if (nrows <= 0 || t0 >= kmax) continue;
-    const int n = min(BK, kmax - t0);
+    // a warp with no rows, or past its causal limit, folds in no keys (no
+    // branch around tile_update's shuffles)
+    const int n = nrows > 0 ? max(0, min(BK, kmax - t0)) : 0;
     if (a.causal)
-      tile_update<R, D>(st, wq, nrows, ks, vs, KS, D, t0, n, CausalMask{a.q_offset + row0});
+      tile_update<R, D>(st, wq, ks, vs, KS, D, t0, n, CausalMask{a.q_offset + row0});
     else
-      tile_update<R, D>(st, wq, nrows, ks, vs, KS, D, t0, n, NoMask{});
+      tile_update<R, D>(st, wq, ks, vs, KS, D, t0, n, NoMask{});
   }
   if (nrows <= 0) return;
 
@@ -135,11 +136,11 @@ int launch(const FlashArgs& a, int B, cudaStream_t stream) {
 template <typename T>
 int dispatch(int D, const FlashArgs& a, int B, cudaStream_t stream) {
   switch (D) {
+    case 16: return launch<T, 16>(a, B, stream);
     case 32: return launch<T, 32>(a, B, stream);
     case 48: return launch<T, 48>(a, B, stream);
     case 64: return launch<T, 64>(a, B, stream);
     case 80: return launch<T, 80>(a, B, stream);
-    case 96: return launch<T, 96>(a, B, stream);
     case 128: return launch<T, 128>(a, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

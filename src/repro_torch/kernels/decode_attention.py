@@ -10,6 +10,7 @@ cache's dtype before the PV product).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -18,6 +19,22 @@ from . import _build
 from .flash_attention import DTYPE_CODES, HEAD_DIMS, check_rows
 
 MAX_GROUP = 16     # query heads per KV head that one block's state holds
+KEY_TILE = 32      # keys per tile of the kernel
+MAX_SPLITS = 16    # splits of one (KV head, batch row): one cluster, H100's largest
+
+
+def decode_splits(b: int, t: int, hkv: int, sm_count: int) -> int:
+    """Blocks per (KV head, batch row): the most that keep the grid
+    (Hkv, B, splits) within one block per SM, at most one per tile of 32
+    cache rows and at most 16.  A function of the shapes alone, so every
+    call at a shape (and a CUDA graph of it) launches the same grid."""
+    tiles = -(-t // KEY_TILE)
+    return max(1, min(tiles, MAX_SPLITS, sm_count // (b * hkv)))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -73,10 +90,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("length must be an int32 tensor of shape () or "
                          f"({b},) on {q.device}")
     o = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device)
+    n_split = decode_splits(b, t, hkv, _sm_count(q.device.index))
     rc = _build.library().decode_attention(
         DTYPE_CODES[q.dtype], d, q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), length.data_ptr(), int(length.dim() == 1), o.data_ptr(),
-        b, t, hq, hkv, q.stride(0), q.stride(2), *k_cache.stride()[:3],
+        n_split, b, t, hq, hkv, q.stride(0), q.stride(2), *k_cache.stride()[:3],
         *v_cache.stride()[:3], o.stride(0), o.stride(2), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "decode_attention")

@@ -17,7 +17,7 @@ from . import _build
 
 NEG_BIG = -1e30
 CHUNK = 512            # KV chunk of the jnp reference (layers.blocked_attention)
-HEAD_DIMS = (32, 48, 64, 80, 96, 128)
+HEAD_DIMS = (16, 32, 48, 64, 80, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -60,15 +60,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _rows_readable(x: torch.Tensor) -> bool:
-    """The kernels read 4 elements at a time along D: unit stride on D,
-    and every row start aligned to 4 elements."""
-    return x.stride(3) == 1 and not any(st % 4 for st in x.stride()[:3]) \
-        and not x.data_ptr() % (4 * x.element_size())
+    """The kernels copy rows 16 bytes at a time along D: unit stride on
+    D, and every row start aligned to 16 bytes."""
+    per = 16 // x.element_size()
+    return x.stride(3) == 1 and not any(st % per for st in x.stride()[:3]) \
+        and not x.data_ptr() % 16
 
 
 def check_rows(name: str, x: torch.Tensor) -> None:
     if not _rows_readable(x):
-        raise ValueError(f"{name}: need unit stride on D and 4-aligned rows, "
+        raise ValueError(f"{name}: need unit stride on D and rows aligned to 16 "
+                         "bytes (4-aligned in float32, 8-aligned in bfloat16), "
                          f"got strides {x.stride()}")
 
 

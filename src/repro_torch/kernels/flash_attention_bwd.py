@@ -80,12 +80,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     # scratch: delta = rowsum(do·o), and each query head's dk and dv in f32
-    # before the group sum
+    # before the group sum (not needed by bf16 at a group of 1)
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    dkv_part = torch.empty((2, b, t, hq, d), dtype=torch.float32, device=q.device)
+    dkv_part = (torch.empty((2, b, t, hq, d), dtype=torch.float32, device=q.device)
+                if q.dtype == torch.float32 or hq != hkv else None)
     rc = _build.library().flash_attention_bwd(
         DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dkv_part.data_ptr(), dq.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        None if dkv_part is None else dkv_part.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, s, t, hq, hkv,
         *(st for x in (q, k, v, o, do, dq, dk, dv) for st in x.stride()[:3]),
         int(causal), q_offset, 1.0 / math.sqrt(d),

@@ -100,7 +100,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         # autograd may hand over a strided or misaligned gradient; the
-        # kernel reads unit-stride rows that start 4-aligned
+        # kernel reads unit-stride rows that start 16-byte aligned
         dq, dk, dv = _flash_bwd_kernel(q, k, v, o, readable_rows(do), lse,
                                        ctx.causal, ctx.q_offset)
         return dq, dk, dv, None, None

@@ -21,8 +21,10 @@ from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
 )
 from repro_torch.models import layers as tl  # noqa: E402
 
-# (B, S, T, Hq, Hkv, D): the JAX backward tests' shapes and a cross length
-SHAPES = [(2, 64, 64, 4, 2, 32), (1, 96, 96, 8, 8, 64), (2, 64, 192, 4, 1, 48)]
+# (B, S, T, Hq, Hkv, D): the JAX backward tests' shapes, a cross length and
+# head dim 16
+SHAPES = [(2, 64, 64, 4, 2, 32), (1, 96, 96, 8, 8, 64), (2, 64, 192, 4, 1, 48),
+          (2, 64, 64, 4, 2, 16)]       # head dim 16: every smoke config's
 # atol = rtol: the JAX VJP test's 1e-4/1e-3 for f32 (tests/test_kernels.py:
 # 152-168); 2e-2 for bf16, where JAX rounds each query head's dk/dv to bf16
 # before the GQA sum and the port sums in f32 and rounds once

@@ -12,8 +12,19 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    KEY_TILE,
+    MAX_SPLITS,
+    decode_attention,
+    decode_splits,
+)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    HEAD_DIMS,
+    check_rows,
+    flash_attention,
+    readable_rows,
+)
 
 # the JAX kernel tests' shapes and tolerances (tests/test_kernels.py)
 FA_SHAPES = [
@@ -22,12 +33,14 @@ FA_SHAPES = [
     (2, 128, 128, 4, 2, 64, 64, 64),
     (1, 100, 100, 8, 8, 64, 64, 64),
     (2, 64, 192, 4, 1, 48, 32, 64),
+    (2, 64, 64, 4, 2, 16, 32, 32),      # head dim 16: every smoke config's
 ]
 DEC_SHAPES = [
     # (B, T, Hq, Hkv, D, bk)
     (1, 128, 1, 1, 32, 64),
     (2, 256, 4, 2, 64, 128),
     (3, 300, 8, 4, 48, 128),
+    (2, 128, 4, 2, 16, 64),             # head dim 16
 ]
 DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
           "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
@@ -76,6 +89,51 @@ def test_flash_plain_lse_matches_jax():
     kx, vx = jl._expand_kv(jk, 4), jl._expand_kv(jv, 4)
     _, jlse = jl._flash_core(jq, kx, vx, True, 0, 512)
     _close(lse, jlse, 2e-5)
+
+
+def test_flash_plain_lse_matches_jax_at_head_dim_16():
+    (q, k, v), (jq, jk, jv) = _inputs(4, "float32", (2, 40, 4, 16), (2, 40, 2, 16),
+                                      (2, 40, 2, 16))
+    _, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    kx, vx = jl._expand_kv(jk, 4), jl._expand_kv(jv, 4)
+    _, jlse = jl._flash_core(jq, kx, vx, True, 0, 512)
+    _close(lse, jlse, 2e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "zamba2_2_7b"])
+def test_smoke_configs_have_a_head_dim_the_kernels_take(arch):
+    """The examples and launchers run the smoke configs on the card."""
+    assert get_config(arch).smoke().hd in HEAD_DIMS
+
+
+@pytest.mark.parametrize("b,t,hkv,sms,want", [
+    (4, 512, 2, 132, 16),      # qwen2-0.5B's serve shape: 8 (KV head, row) pairs
+    (4, 512, 32, 132, 1),      # zamba2-2.7B's: 128 pairs fill the card alone
+    (1, 64, 1, 132, 2),        # at most one split per tile of 32 rows
+    (1, 8192, 1, 132, 16),     # at most 16 splits (one cluster)
+    (64, 512, 8, 132, 1),      # never below 1
+])
+def test_decode_splits_depends_on_shapes_alone(b, t, hkv, sms, want):
+    n = decode_splits(b, t, hkv, sms)
+    assert n == want
+    tiles = -(-t // KEY_TILE)
+    assert 1 <= n <= min(tiles, MAX_SPLITS)
+    # within one block per SM, and no more splits would be
+    assert n == 1 or n * b * hkv <= sms
+    assert n in (tiles, MAX_SPLITS) or (n + 1) * b * hkv > sms
+
+
+def test_rows_need_16_byte_alignment():
+    """The kernels copy rows 16 bytes at a time: a bf16 row start 4- but not
+    8-aligned is refused by the GPU check and copied by readable_rows."""
+    base = torch.zeros(2 * 4 * 16 + 4, dtype=torch.bfloat16)
+    x = base[4:].view(1, 2, 4, 16)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    with pytest.raises(ValueError, match="16 bytes"):
+        check_rows("x", x)
+    y = readable_rows(x)
+    check_rows("y", y)
+    assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
