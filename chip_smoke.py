@@ -8,16 +8,17 @@ prints no result line:
 
 1. env      -- card, power limit, versions; builds the CUDA kernels.
 2. kernels  -- each attention kernel against its plain version on the
-               card, at the main paths' shapes (qwen2-0.5B's and
-               zamba2-2.7B's shared block's, head dim 80), the JAX kernel
-               tests' shapes and the other head dims the kernels take
-               (16, 128), f32 and bf16.  Times at the serve path's
-               shapes (forward; decode at qwen2-0.5B's and zamba2-2.7B's)
-               and the training shape (backward).  Then the scan kernel
-               against its plain
-               version (y and h_final, with and without h0, f32 and bf16)
-               at the JAX scan test's shapes and both SSM serve shapes,
-               its refusal under autograd, and its times.
+               card, at the main paths' shapes (qwen2-0.5B's serve and
+               training shapes, zamba2-2.7B's shared block's, head dim
+               80), the JAX kernel tests' shapes and the other head dims
+               the kernels take (16, 128), f32 and bf16.  Times and
+               bounds at the serve path's shapes (forward; decode at
+               qwen2-0.5B's and zamba2-2.7B's) and the training shape
+               (backward, and the forward beside it).  Then the scan
+               kernel against its plain version (y and h_final, with and
+               without h0, f32 and bf16) at the JAX scan test's shapes
+               and both SSM serve shapes, its refusal under autograd, and
+               its times; its bound counts the exps at the SFU's rate.
 3. serve    -- full-width qwen2-0.5B (bf16, random weights from a seed)
                through ``ServingEngine``; the launch counters must show
                that every prefill and decode layer ran the kernels.
@@ -77,6 +78,14 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and dense bf16/f32 rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# exponentials by the SFU (MUFU) alone: 16 a clock per SM on compute
+# capability 9.0 (CUDA C++ Programming Guide, throughput of arithmetic
+# instructions: base-2 exponential), 132 SMs at the 1.98 GHz boost clock
+PEAK_EXPS = 132 * 16 * 1.98e9
+# FMA-pipe instructions for one exp2 taken off the SFU: a degree-3
+# polynomial (3 FMAs) after one subtraction for the range reduction, the
+# least an emulated exp2 costs (the exponent's integer ops run on the INT pipe)
+FMA_PER_EXP = 4
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX kernel tests' tolerances
 
 # the JAX kernel tests' shapes (tests/test_kernels.py), then the head dims
@@ -184,6 +193,13 @@ def bound(n_bytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def fwd_bound(b: int, s: int, t: int, hq: int, hkv: int, d: int) -> tuple[float, str]:
+    """The causal bf16 forward's bound: q, k, v read and o written once;
+    4·D FLOPs (two products) per visible query-key pair, top-left mask."""
+    pairs = b * hq * sum(min(t, i + 1) for i in range(s))
+    return bound((2 * b * s * hq * d + 2 * b * t * hkv * d) * 2, 4 * d * pairs, "bfloat16")
+
+
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
@@ -202,14 +218,17 @@ def phase_kernels(torch, fa, dec) -> dict:
     slice_fa = (1, PROMPT_LEN, PROMPT_LEN, 14, 2, 64)
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
-        for shape in [slice_fa, HYBRID_FA] + FA_SHAPES:
+        for shape in [slice_fa, HYBRID_FA, TRAIN_SHAPE] + FA_SHAPES:
             b, s, t, hq, hkv, d = shape
             q, k, v = randn(b, s, hq, d, dtype=dt), randn(b, t, hkv, d, dtype=dt), \
                 randn(b, t, hkv, d, dtype=dt)
-            # every case in full; the serve shape also with a q_offset and a kv_len
+            # every case in full; the serve shapes also with a q_offset and a
+            # kv_len, the training shape with a q_offset
             cases = [(c, 0, t) for c in (True, False)]
             if shape in (slice_fa, HYBRID_FA):
                 cases += [(True, 16, t - 40), (False, 0, t - 40)]
+            elif shape == TRAIN_SHAPE:
+                cases += [(True, 16, t)]
             for causal, q_offset, kv_len in cases:
                 o, lse = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                                             kv_len=kv_len, return_lse=True)
@@ -253,9 +272,7 @@ def phase_kernels(torch, fa, dec) -> dict:
     q, k, v = randn(b, s, hq, d, dtype=dt), randn(b, t, hkv, d, dtype=dt), \
         randn(b, t, hkv, d, dtype=dt)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    keys_seen = sum(min(t, i + 1) for i in range(s))           # causal, top-left
-    fa_bound, fa_by = bound((2 * b * s * hq * d + 2 * b * t * hkv * d) * elt,
-                            4 * b * hq * d * keys_seen, "bfloat16")
+    fa_bound, fa_by = fwd_bound(*slice_fa)
     kernel = lambda: fa.flash_attention(q, k, v, causal=True)
     timing = {"flash_attention_fwd": dict(
         ms=cuda_ms(kernel), eager_ms=eager_ms(kernel),
@@ -334,6 +351,7 @@ def phase_kernels_bwd(torch, fa, fb) -> dict:
     pairs = b * hq * sum(min(t, i + 1) for i in range(s))     # visible query-key pairs
     n_bytes = (4 * b * s * hq * d + 4 * b * t * hkv * d) * 2 + b * hq * s * 4
     bwd_bound, bwd_by = bound(n_bytes, 10 * d * pairs, "bfloat16")
+    f_bound, f_by = fwd_bound(*TRAIN_SHAPE)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
     dot = do.transpose(1, 2)
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
@@ -347,18 +365,37 @@ def phase_kernels_bwd(torch, fa, fb) -> dict:
         library_fwd_bwd_ms=sdpa_fwd_bwd_ms, bound_ms=bwd_bound, bound_by=bwd_by,
         shape=list(TRAIN_SHAPE),
         # the forward kernel at the same shape, for the train phase's shares
-        fwd_ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True)))
+        fwd_ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True, return_lse=True)),
+        fwd_bound_ms=f_bound, fwd_bound_by=f_by)
     emit({"phase": "kernels_bwd", "ok": True, "checks": checks, "timing_bf16": timing})
     return {**timing, "max_abs_err": err_train}
 
 
-def scan_bound(bt: int, s: int, din: int, n: int, elt: int) -> tuple[float, str]:
+def scan_bound(bt: int, s: int, din: int, n: int, elt: int) -> tuple[float, str, dict]:
     """Bytes: x and dt read and y written (Bt,S,Din), B and C read
     (Bt,S,N), in the input type; A (Din,N) and D (Din,) read and h_final
     (Bt,Din,N) written, in f32.  FLOPs: 6 per (t, d, n) step and 3 per
-    (t, d), at the f32 rate (the scan's arithmetic is f32)."""
+    (t, d), at the f32 rate (the scan's arithmetic is f32).  Exps: one per
+    (t, d, n) step (the decay) and one per (t, d) (softplus).
+
+    Returns the bound in ms, what sets it ("operations" for either rate)
+    and the terms.  The bound takes every exp at the SFU's rate
+    (``exp_mufu_only``).  That is not a floor: the FMA pipes can evaluate
+    exp2 by a polynomial beside the SFU.  ``flops_and_exp_mufu_fma`` is
+    the floor for the arithmetic, the exps shared between the SFU and the
+    FMA pipes at ``FMA_PER_EXP`` instructions each, the FLOPs on the FMA
+    pipes as FMAs; it lies between ``flops_f32`` and ``exp_mufu_only``."""
     n_bytes = (3 * bt * s * din + 2 * bt * s * n) * elt + (din * n + din + bt * din * n) * 4
-    return bound(n_bytes, bt * s * din * (6 * n + 3), "float32")
+    flops, exps = bt * s * din * (6 * n + 3), bt * s * din * (n + 1)
+    fma_per_s = PEAK_FLOPS["float32"] / 2                 # FMA instructions a second
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "flops_f32": flops / PEAK_FLOPS["float32"] * 1e3,
+             "exp_mufu_only": exps / PEAK_EXPS * 1e3}
+    by = max(terms, key=terms.get)
+    terms["flops_and_exp_mufu_fma"] = max(
+        flops / 2 / fma_per_s,
+        (flops / 2 + FMA_PER_EXP * exps) / (fma_per_s + FMA_PER_EXP * PEAK_EXPS)) * 1e3
+    return terms[by], "bytes" if by == "bytes" else "operations", terms
 
 
 def phase_kernels_scan(torch, ms) -> dict:
@@ -417,14 +454,14 @@ def phase_kernels_scan(torch, ms) -> dict:
     timing = {}
     for arch, shape in SCAN_SERVE.items():
         x, dtr, A, B, C, D, _ = inputs(shape, torch.bfloat16)
-        b_ms, b_by = scan_bound(*shape, elt=2)
+        b_ms, b_by, b_terms = scan_bound(*shape, elt=2)
         kernel = lambda: ms.mamba_scan(x, dtr, A, B, C, D)
         timing[arch] = dict(
             ms=cuda_ms(kernel), eager_ms=eager_ms(kernel),
             # the plain version is a loop of S steps: fewer calls per graph
             plain_ms=cuda_ms(lambda: ms.mamba_scan_plain(x, dtr, A, B, C, D), iters=2, reps=3),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=list(shape),
-            exps=shape[0] * shape[1] * shape[2] * shape[3])
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_terms_ms=b_terms,
+            shape=list(shape), exps=shape[0] * shape[1] * shape[2] * (shape[3] + 1))
     emit({"phase": "kernels_scan", "ok": True, "checks": checks, "timing_bf16": timing,
           "library": "none: no single PyTorch call computes the selective scan"})
     return {**timing[SSM_ARCH], "max_abs_err": row_err, "by_arch": timing}

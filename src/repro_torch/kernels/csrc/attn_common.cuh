@@ -1,7 +1,9 @@
 // Shared device code of the attention kernels: element conversion, warp
 // reductions, the online-softmax update of one warp's query rows against
-// one tile of up to 32 keys, and Hopper's asynchronous copy and bf16
-// tensor-core instructions (cp.async, ldmatrix, mma.sync) as inline PTX.
+// one tile of up to 32 keys (the CUDA-core paths), and Hopper's
+// asynchronous copy and bf16 tensor-core instructions (cp.async, ldmatrix,
+// mma.sync) as inline PTX with the padded bf16 tile they read (the
+// tensor-core paths of the forward and the backward).
 //
 // Layout of the work inside a warp: lane j owns key (t0 + j) of the tile
 // while scores are formed (it reads that key's whole row, so each K row is
@@ -124,6 +126,34 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[1] = pack_bf16(c0[2], c0[3]);
   a[2] = pack_bf16(c1[0], c1[1]);
   a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// 2^x by the SFU (ex2.approx, relative error ~2^-22; 2^-inf = 0).
+constexpr float LOG2E = 1.4426950408889634f;
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Row stride, in elements, of a bf16 tile with D columns in shared memory:
+// a 16-byte pad, so the 8 rows an ldmatrix reads hit 8 bank groups.
+template <int D>
+constexpr int TC_LD = D + 8;
+
+// Rows [0, rows) of a (·, D) bf16 matrix at src (row stride rs) into
+// shared memory (row stride TC_LD<D>) by cp.async, 16 bytes a thread, by
+// the NT threads of the block; rows at or past n are zero-filled.  src
+// must be a row of the tensor (row 0 is read only when n > 0).
+template <int D, int NT>
+__device__ __forceinline__ void stage_tc(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                         long long rs, int rows, int n) {
+  constexpr int CH = D / 8, LD = TC_LD<D>;
+  for (int i = threadIdx.x; i < rows * CH; i += NT) {
+    const int r = i / CH, c = 8 * (i % CH);
+    const bool live = r < n;
+    cp_async16(dst + r * LD + c, live ? src + r * rs + c : src, live ? 16 : 0);
+  }
 }
 
 __device__ __forceinline__ float warp_max(float x) {

@@ -2,41 +2,56 @@
 //
 // Replaces the TPU kernel `_fa_kernel` (src/repro/kernels/flash_attention.py,
 // driven by `flash_attention_bhsd` and `ops.flash_attention`); in the port it
-// carries the prefill attention of the dense LM, the counterpart of
-// `layers.blocked_attention`.
+// carries the prefill attention of the dense LM and of the hybrid's shared
+// block, the counterpart of `layers.blocked_attention`, and the forward of
+// the autograd `FlashAttention` in every train step.
 //
 // What it computes: o = softmax(mask(scale · q kᵀ)) v per (batch, query head),
 // with GQA (query head h reads KV head h / (Hq / Hkv), nothing repeated in
 // memory), keys at or past kv_len masked, and, when causal, the top-left
 // aligned mask key <= q_offset + q_pos of `layers._attn_mask`.  Optionally
-// also writes lse = m + log(l) (B, Hq, S) in f32 for a later backward.
+// also writes lse = m + log(l) (B, Hq, S) in f32, natural log, for the
+// backward.  q is scaled and rounded to the input type first, as
+// `layers._flash_core` does.
 //
-// What bounds it on this card: at the prefill shapes (S = T = 256, D = 64)
-// the work is ~1 MB of q/k/v/o against ~0.12 GFLOP, so the card's memory
-// bound (~0.3 us) is above its bf16 tensor-core bound (~0.1 us).  This
-// first version is far from either: it runs its products as f32 FMAs on
-// the CUDA cores, and the serve shape gives it only ~14 warps per SM, so it
-// is bound by instruction latency (PERF.md has its time beside both bounds).
+// What bounds it on this card: at qwen2-0.5B's prefill (S = T = 256, D =
+// 64) the work is ~1 MB of q/k/v/o against ~0.12 GFLOP, so the memory
+// bound (~0.3 us) is above the bf16 tensor-core bound (~0.1 us); at the
+// training shape (B = 4, S = T = 512) ~8.4 MB against ~1.9 GFLOP, about
+// even (~2.5 us and ~1.9 us).  Neither is near: at these sizes each
+// block's chain of dependent tiles (load, Q Kᵀ, softmax, P V) sets the
+// time, so the bf16 path runs its products on the tensor cores and keeps
+// the next tile's loads in flight behind the current one.
 //
-// Design: one block of 8 warps per (q tile of 16 rows, query head, batch);
-// each warp holds 2 query rows (at the serve shape, more warps of fewer
-// rows hide more latency than 4 warps of 4 rows did).  The block walks the
-// KV tiles of 32 keys up to its causal limit in a loop -- that loop takes
-// the place of the TPU's sequential innermost grid axis, so no state crosses
-// blocks.  Each KV tile is staged once in shared memory (f32, K rows padded
-// for conflict-free reads) by the whole block with coalesced loads, then
-// every warp folds it into its rows' online-softmax state.  K and V are read
-// in place through the caller's strides (no copy, no padding of D to 128 as
-// the TPU wrapper needed).  Scores, m, l and the accumulator are f32
-// CUDA-core FMAs: the f32 path never touches TF32.
+// bf16 path (tensor cores: mma.sync.m16n8k16, bf16 operands, f32
+// accumulators): one block of 4 warps per (query head, batch, tile of 64
+// query rows), heaviest causal tiles first; each warp owns 16 rows.  (At
+// the serve shape that is 56 blocks on 132 SMs, yet fewer rows a block,
+// and a KV head's group of query heads packed into the rows of one block,
+// were measured slower or no faster: PERF.md.)  Each warp holds its 16 rows
+// of q, scaled and rounded to bf16 once, as A fragments in registers for
+// the whole walk over the keys.  K/V tiles of 64 keys are double-buffered
+// by cp.async (ragged edges zero-filled) into rows padded by 16 bytes; per
+// tile S = Q Kᵀ takes K through plain ldmatrix, the online softmax runs on
+// the accumulators (each row's max reduced over its quad of lanes by
+// shuffles outside any branch; the row sum kept per lane and reduced once
+// at the end), P is rounded to bf16 once and repacked from the
+// accumulators into A fragments, and O += P V takes V through
+// ldmatrix.trans.  Only a tile that crosses kv_len or the causal diagonal
+// of the warp's first row tests keys one by one.
+//
+// f32 path (CUDA cores, never TF32: its tolerance is 2e-5): one block of
+// 8 warps per (q tile of 16 rows, query head, batch), each warp holding 2
+// query rows; each KV tile of 32 keys is staged in shared memory in f32 by
+// the whole block, and every warp folds it into its rows' online-softmax
+// state (`attn::tile_update`).
+#include <cmath>
+
 #include "attn_common.cuh"
 
 namespace {
 
-constexpr int NW = 8;          // warps per block
-constexpr int R = 2;           // query rows per warp
-constexpr int BQ = NW * R;     // query rows per block
-constexpr int BK = 32;         // keys per tile (one per lane)
+using bf16 = __nv_bfloat16;
 
 struct FlashArgs {
   const void* q;
@@ -50,8 +65,15 @@ struct FlashArgs {
   float scale;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(FlashArgs a) {
+// -- f32: CUDA cores ----------------------------------------------------------
+
+constexpr int NW = 8;          // warps per block
+constexpr int R = 2;           // query rows per warp
+constexpr int BQ = NW * R;     // query rows per block
+constexpr int BK = 32;         // keys per tile (one per lane)
+
+template <int D>
+__global__ void __launch_bounds__(NW * 32) flash_fwd_f32_kernel(FlashArgs a) {
   using namespace attn;
   constexpr int KS = D + 4;   // padded K row: conflict-free 16-byte reads by key
   __shared__ __align__(16) float qs[BQ * D];
@@ -61,14 +83,13 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(FlashArgs a) {
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int hk = h / (a.Hq / a.Hkv);
-  const T* q = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
-  const T* k = static_cast<const T*>(a.k) + b * a.ksb + hk * a.ksh;
-  const T* v = static_cast<const T*>(a.v) + b * a.vsb + hk * a.vsh;
+  const float* q = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
+  const float* k = static_cast<const float*>(a.k) + b * a.ksb + hk * a.ksh;
+  const float* v = static_cast<const float*>(a.v) + b * a.vsb + hk * a.vsh;
 
-  // q tile, scaled and rounded to T as `layers._flash_core` does
   for (int i = threadIdx.x; i < BQ * D; i += NW * 32) {
     const int r = i / D, d = i % D, row = q0 + r;
-    qs[i] = row < a.S ? to_f(from_f<T>(to_f(q[row * a.qss + d]) * a.scale)) : 0.f;
+    qs[i] = row < a.S ? q[row * a.qss + d] * a.scale : 0.f;
   }
   __syncthreads();
 
@@ -86,8 +107,8 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(FlashArgs a) {
   st.init();
   const float* wq = qs + warp * R * D;
   for (int t0 = 0; t0 < kmax_blk; t0 += BK) {
-    // stage the tile in shared memory in f32: every load of the tile is
-    // issued at once, by the whole block, coalesced
+    // stage the tile in shared memory: every load of the tile is issued
+    // at once, by the whole block, coalesced
     const int n_blk = min(BK, kmax_blk - t0);
     __syncthreads();
     for (int i = threadIdx.x; i < BK * D / 4; i += NW * 32) {
@@ -109,7 +130,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(FlashArgs a) {
   }
   if (nrows <= 0) return;
 
-  T* o = static_cast<T*>(a.o) + b * a.osb + h * a.osh;
+  float* o = static_cast<float*>(a.o) + b * a.osb + h * a.osh;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (r < nrows) {
@@ -118,7 +139,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(FlashArgs a) {
 #pragma unroll
       for (int sl = 0; sl < RowState<R, D>::SLOTS; ++sl) {
         const int d = lane + 32 * sl;
-        if (d < D) o[row * a.oss + d] = from_f<T>(st.acc[r][sl] / l_safe);
+        if (d < D) o[row * a.oss + d] = st.acc[r][sl] / l_safe;
       }
       if (a.lse != nullptr && lane == 0)
         a.lse[((long long)b * a.Hq + h) * a.S + row] = st.m[r] + logf(l_safe);
@@ -126,31 +147,216 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(FlashArgs a) {
   }
 }
 
-template <typename T, int D>
-int launch(const FlashArgs& a, int B, cudaStream_t stream) {
-  const dim3 grid((a.S + BQ - 1) / BQ, a.Hq, B);
-  flash_fwd_kernel<T, D><<<grid, NW * 32, 0, stream>>>(a);
+// -- bf16: tensor cores -------------------------------------------------------
+
+constexpr int TW = 4;          // warps per block, 16 query rows each
+constexpr int TBQ = 16 * TW;   // query rows per block
+constexpr int TBK = 64;        // keys per K/V tile
+
+template <int D>
+struct FwdTc {
+  static constexpr int LD = attn::TC_LD<D>;
+  static constexpr int BYTES = (TBQ + 2 * 2 * TBK) * LD * 2;   // Q | K, V [2 stages]
+};
+
+// The pair of bf16 in u, each times s and rounded to bf16 again.
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t u, float s) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+  return attn::pack_bf16(f.x * s, f.y * s);
+}
+
+// One block: TBQ query rows of query head blockIdx.x, batch blockIdx.y.
+template <int D>
+__global__ void __launch_bounds__(TW * 32) flash_fwd_tc_kernel(FlashArgs a) {
+  using namespace attn;
+  constexpr int LD = FwdTc<D>::LD, NT = TW * 32;
+  extern __shared__ __align__(16) unsigned char smem_fwd[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_fwd);   // [TBQ][LD]
+  bf16* ks = qs + TBQ * LD;                       // [2][TBK][LD]
+  bf16* vs = ks + 2 * TBK * LD;                   // [2][TBK][LD]
+
+  // row tiles on the slowest grid axis, the last (heaviest causal) first
+  const int h = blockIdx.x, b = blockIdx.y, i0 = (gridDim.z - 1 - blockIdx.z) * TBQ;
+  const int hk = h / (a.Hq / a.Hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+
+  // keys any row of the block sees
+  const int kend = min(a.T, a.kv_len);
+  const int kmax = a.causal ? min(kend, a.q_offset + min(i0 + TBQ, a.S)) : kend;
+  const int n_kt = kmax > 0 ? (kmax + TBK - 1) / TBK : 0;
+
+  stage_tc<D, NT>(qs, static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh + i0 * a.qss, a.qss,
+                  TBQ, min(TBQ, a.S - i0));
+  cp_async_commit();
+  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.ksb + hk * a.ksh;
+  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.vsb + hk * a.vsh;
+  auto load_kt = [&](int j) {
+    const int t0 = j * TBK, n = min(TBK, kmax - t0), buf = j & 1;
+    stage_tc<D, NT>(ks + buf * TBK * LD, kg + t0 * a.kss, a.kss, TBK, n);
+    stage_tc<D, NT>(vs + buf * TBK * LD, vg + t0 * a.vss, a.vss, TBK, n);
+  };
+  if (n_kt > 0) load_kt(0);
+  cp_async_commit();
+  cp_async_wait<1>();                            // q has landed (this thread's part)
+  __syncthreads();                               // ... and every thread's
+
+  // the warp's 16 rows of q, scaled and rounded to bf16, as A fragments
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    ldsm_x4(qf[kc], qs + (warp * 16 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qf[kc][i] = scale_bf16x2(qf[kc][i], a.scale);
+  }
+
+  // this thread's rows: rows[0] = row_first + g and rows[1] = rows[0] + 8
+  const int row_first = i0 + warp * 16;
+  const int rows[2] = {row_first + g, row_first + g + 8};
+  float o[D / 8][4], m_run[2] = {NEG_BIG, NEG_BIG}, l_run[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+
+  for (int j = 0; j < n_kt; ++j) {
+    if (j + 1 < n_kt) load_kt(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();                          // tile j has landed (this thread's part)
+    __syncthreads();                             // ... and every thread's
+    const int t0 = j * TBK;
+    const bf16* kb = ks + (j & 1) * TBK * LD;
+    const bf16* vb = vs + (j & 1) * TBK * LD;
+
+    // S = Q Kᵀ: the warp's 16 rows against TBK keys, K stored n-major
+    float s[TBK / 8][4];
+#pragma unroll
+    for (int i = 0; i < TBK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+#pragma unroll
+      for (int np = 0; np < TBK / 16; ++np) {
+        uint32_t bk[4];
+        ldsm_x4(bk, kb + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kc * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qf[kc], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[kc], bk[2], bk[3]);
+      }
+    }
+    // masked keys to -inf (p = 0), only in a tile that crosses kv_len or
+    // the causal diagonal of the warp's first row
+    const int klast = t0 + TBK - 1;
+    if (klast >= kend || (a.causal && klast > a.q_offset + row_first)) {
+#pragma unroll
+      for (int nt = 0; nt < TBK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = t0 + nt * 8 + 2 * t4 + (e & 1);
+          if (key >= kend || (a.causal && key > a.q_offset + rows[e >> 1]))
+            s[nt][e] = -INFINITY;
+        }
+    }
+    // online softmax; the shuffles stay outside any branch
+    float corr[2], ml2[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < TBK / 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * hf], s[nt][2 * hf + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float m_new = fmaxf(m_run[hf], mx);
+      corr[hf] = exp2_fast((m_run[hf] - m_new) * LOG2E);
+      m_run[hf] = m_new;
+      ml2[hf] = m_new * LOG2E;
+    }
+#pragma unroll
+    for (int nt = 0; nt < TBK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2_fast(fmaf(s[nt][e], LOG2E, -ml2[e >> 1]));
+        s[nt][e] = p;
+        ls[e >> 1] += p;
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) l_run[hf] = l_run[hf] * corr[hf] + ls[hf];
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][e] *= corr[e >> 1];
+
+    // O += P V: P from the accumulators, V stored k-major
+#pragma unroll
+    for (int kk = 0; kk < TBK / 16; ++kk) {
+      uint32_t pa[4];
+      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, vb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 16 +
+                          (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
+        mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();                             // buffer j & 1 is free for tile j + 2
+  }
+
+  // element (2·hf, 2·hf + 1) of tile dt: row rows[hf], dims 8·dt + 2·t4 + {0, 1}
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l_run[hf] += __shfl_xor_sync(FULL, l_run[hf], 1);
+    l_run[hf] += __shfl_xor_sync(FULL, l_run[hf], 2);
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (rows[hf] >= a.S) continue;
+    const float l_safe = fmaxf(l_run[hf], 1e-37f);
+    bf16* orow = static_cast<bf16*>(a.o) + b * a.osb + rows[hf] * a.oss + h * a.osh;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + 2 * t4) =
+          __floats2bfloat162_rn(o[dt][2 * hf] / l_safe, o[dt][2 * hf + 1] / l_safe);
+    if (a.lse != nullptr && t4 == 0)
+      a.lse[((long long)b * a.Hq + h) * a.S + rows[hf]] = m_run[hf] + logf(l_safe);
+  }
+}
+
+template <int D>
+int launch(int dtype, const FlashArgs& a, int B, cudaStream_t stream) {
+  if (dtype == 0) {
+    flash_fwd_f32_kernel<D><<<dim3((a.S + BQ - 1) / BQ, a.Hq, B), NW * 32, 0, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  // above 48 KB a block's shared memory must be granted once per kernel
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, FwdTc<D>::BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  flash_fwd_tc_kernel<D><<<dim3(a.Hq, B, (a.S + TBQ - 1) / TBQ), TW * 32, FwdTc<D>::BYTES,
+                           stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(int D, const FlashArgs& a, int B, cudaStream_t stream) {
+int dispatch(int dtype, int D, const FlashArgs& a, int B, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(a, B, stream);
-    case 32: return launch<T, 32>(a, B, stream);
-    case 48: return launch<T, 48>(a, B, stream);
-    case 64: return launch<T, 64>(a, B, stream);
-    case 80: return launch<T, 80>(a, B, stream);
-    case 128: return launch<T, 128>(a, B, stream);
+    case 16: return launch<16>(dtype, a, B, stream);
+    case 32: return launch<32>(dtype, a, B, stream);
+    case 48: return launch<48>(dtype, a, B, stream);
+    case 64: return launch<64>(dtype, a, B, stream);
+    case 80: return launch<80>(dtype, a, B, stream);
+    case 128: return launch<128>(dtype, a, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// q (B,S,Hq,D), k/v (B,T,Hkv,D), o like q, all with unit stride on D;
-// strides in elements.  dtype: 0 = float32, 1 = bfloat16.  lse may be null.
-// Returns cudaGetLastError() after the launch (0 on success).
+// q (B,S,Hq,D), k/v (B,T,Hkv,D), o like q, all with unit stride on D and
+// 16-byte aligned rows; strides in elements.  dtype: 0 = float32, 1 =
+// bfloat16.  lse may be null.  Returns cudaGetLastError() after the launch
+// (0 on success).
 extern "C" int flash_attention_fwd(int dtype, int D, const void* q, const void* k, const void* v,
                                    void* o, float* lse, int B, int S, int T, int Hq, int Hkv,
                                    long long qsb, long long qss, long long qsh, long long ksb,
@@ -186,8 +392,5 @@ extern "C" int flash_attention_fwd(int dtype, int D, const void* q, const void* 
   a.q_offset = q_offset;
   a.kv_len = kv_len;
   a.scale = scale;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(D, a, B, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(D, a, B, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(dtype, D, a, B, static_cast<cudaStream_t>(stream));
 }

@@ -358,45 +358,23 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(BwdArgs a) {
 // -- the bf16 path: tensor cores ---------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr float LOG2E = 1.4426950408889634f;
+using attn::exp2_fast;
+using attn::LOG2E;
 constexpr int TW = 4;            // warps per block
 constexpr int TT = TW * 32;      // threads per block
 constexpr int TBK = 16 * TW;     // keys per dk/dv block, 16 per warp
 constexpr int TBQ = 16 * TW;     // query rows per dq block, 16 per warp
 constexpr int TKQ = 64;          // keys per tile of the dq pass
 
-// 2^x by the SFU (ex2.approx, relative error ~2^-22).
-__device__ __forceinline__ float exp2_fast(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int D>
 struct Tc {
-  static constexpr int LD = D + 8;               // bf16 row in shared memory: 16-byte pad, so
-                                                 // the 8 rows of an ldmatrix hit 8 bank groups
+  static constexpr int LD = attn::TC_LD<D>;      // bf16 row in shared memory
   static constexpr int BR = D <= 64 ? 64 : 32;   // query rows per dk/dv tile (registers)
   // dk/dv: K, V | Q, dO [2 stages] | lse, delta [2 stages]
   static constexpr int DKDV_BYTES = (2 * TBK * LD + 2 * 2 * BR * LD) * 2 + 2 * 2 * BR * 4;
   // dq: Q, dO | K, V [2 stages]
   static constexpr int DQ_BYTES = (2 * TBQ * LD + 2 * 2 * TKQ * LD) * 2;
 };
-
-// Rows [0, rows) of a (·, D) bf16 matrix at src (row stride rs) into
-// shared memory (row stride LD) by cp.async, 16 bytes a thread; rows at or
-// past n are zero-filled.  src must be a row of the tensor (row 0 is read
-// only when n > 0).
-template <int D>
-__device__ __forceinline__ void stage_tc(bf16* dst, const bf16* src, long long rs, int rows,
-                                         int n) {
-  constexpr int CH = D / 8, LD = Tc<D>::LD;
-  for (int i = threadIdx.x; i < rows * CH; i += TT) {
-    const int r = i / CH, c = 8 * (i % CH);
-    const bool live = r < n;
-    attn::cp_async16(dst + r * LD + c, live ? src + r * rs + c : src, live ? 16 : 0);
-  }
-}
 
 // Pᵀ and dSᵀ / scale in place of Sᵀ and dPᵀ (dk/dv pass; the caller
 // applies the scale to dk once): element e of tile nt is
@@ -463,18 +441,19 @@ __global__ void __launch_bounds__(TT) bwd_dkdv_tc_kernel(BwdArgs a) {
   const int n_tiles = i_start < a.S ? (a.S - i_start + BR - 1) / BR : 0;
 
   const int nkeys = min(TBK, a.T - t0);
-  stage_tc<D>(ks, static_cast<const bf16*>(a.k) + b * a.ksb + hk * a.ksh + t0 * a.kss, a.kss,
-              TBK, nkeys);
-  stage_tc<D>(vs, static_cast<const bf16*>(a.v) + b * a.vsb + hk * a.vsh + t0 * a.vss, a.vss,
-              TBK, nkeys);
+  stage_tc<D, TT>(ks, static_cast<const bf16*>(a.k) + b * a.ksb + hk * a.ksh + t0 * a.kss,
+                  a.kss, TBK, nkeys);
+  stage_tc<D, TT>(vs, static_cast<const bf16*>(a.v) + b * a.vsb + hk * a.vsh + t0 * a.vss,
+                  a.vss, TBK, nkeys);
   auto load_tile = [&](int j) {
     const int i0 = i_start + j * BR, buf = j & 1;
     const int n = min(BR, a.S - i0);
-    stage_tc<D>(qs + buf * BR * LD,
-                static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh + i0 * a.qss, a.qss, BR, n);
-    stage_tc<D>(dos + buf * BR * LD,
-                static_cast<const bf16*>(a.dout) + b * a.dosb + h * a.dosh + i0 * a.doss, a.doss,
-                BR, n);
+    stage_tc<D, TT>(qs + buf * BR * LD,
+                    static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh + i0 * a.qss, a.qss,
+                    BR, n);
+    stage_tc<D, TT>(dos + buf * BR * LD,
+                    static_cast<const bf16*>(a.dout) + b * a.dosb + h * a.dosh + i0 * a.doss,
+                    a.doss, BR, n);
     if (threadIdx.x < BR) {
       const bool live = threadIdx.x < n;
       const long long row = ((long long)b * a.Hq + h) * a.S + i0 + (live ? threadIdx.x : 0);
@@ -604,14 +583,15 @@ __global__ void __launch_bounds__(TT) bwd_dq_tc_kernel(BwdArgs a) {
   const bf16* kg = static_cast<const bf16*>(a.k) + b * a.ksb + hk * a.ksh;
   const bf16* vg = static_cast<const bf16*>(a.v) + b * a.vsb + hk * a.vsh;
 
-  stage_tc<D>(qs, static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh + i0 * a.qss, a.qss,
-              TBQ, nrows);
-  stage_tc<D>(dos, static_cast<const bf16*>(a.dout) + b * a.dosb + h * a.dosh + i0 * a.doss,
-              a.doss, TBQ, nrows);
+  stage_tc<D, TT>(qs, static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh + i0 * a.qss,
+                  a.qss, TBQ, nrows);
+  stage_tc<D, TT>(dos,
+                  static_cast<const bf16*>(a.dout) + b * a.dosb + h * a.dosh + i0 * a.doss,
+                  a.doss, TBQ, nrows);
   auto load_kt = [&](int j) {
     const int t0 = j * TKQ, n = min(TKQ, kmax - t0), buf = j & 1;
-    stage_tc<D>(ks + buf * TKQ * LD, kg + t0 * a.kss, a.kss, TKQ, n);
-    stage_tc<D>(vs + buf * TKQ * LD, vg + t0 * a.vss, a.vss, TKQ, n);
+    stage_tc<D, TT>(ks + buf * TKQ * LD, kg + t0 * a.kss, a.kss, TKQ, n);
+    stage_tc<D, TT>(vs + buf * TKQ * LD, vg + t0 * a.vss, a.vss, TKQ, n);
   };
   if (n_kt > 0) load_kt(0);
   cp_async_commit();
