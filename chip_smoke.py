@@ -6,7 +6,9 @@
 Phases, each printing one JSON line; any failure exits non-zero and
 prints no result line:
 
-1. env      -- card, power limit, versions; builds the CUDA kernels.
+1. env      -- card, power limit, versions; builds the CUDA kernels and
+               prints ptxas's registers and spills of the scan kernel's
+               instantiations.
 2. kernels  -- each attention kernel against its plain version on the
                card, at the main paths' shapes (qwen2-0.5B's serve and
                training shapes, zamba2-2.7B's shared block's, head dim
@@ -16,9 +18,15 @@ prints no result line:
                qwen2-0.5B's and zamba2-2.7B's) and the training shape
                (backward, and the forward beside it).  Then the scan
                kernel against its plain version (y and h_final, with and
-               without h0, f32 and bf16) at the JAX scan test's shapes
-               and both SSM serve shapes, its refusal under autograd, and
-               its times; its bound counts the exps at the SFU's rate.
+               without h0, f32 and bf16) at the JAX scan test's shapes,
+               both SSM serve shapes, S = 1, either side of the kernel's
+               32-step chunk and 300 at both serve widths, (Bt, S) =
+               (4, 512) at both, 2048 steps at falcon-mamba-7B's width,
+               N = 4 and 8 over many blocks, and misaligned slices; two
+               launches bit-for-bit equal;
+               its refusal under autograd; its times and launch shapes
+               at the serve shapes (and, for information, the (4, 512)
+               shapes); its bound counts the exps at the SFU's rate.
 3. serve    -- full-width qwen2-0.5B (bf16, random weights from a seed)
                through ``ServingEngine``; the launch counters must show
                that every prefill and decode layer ran the kernels.
@@ -75,17 +83,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+SMS = 132   # H100 SXM streaming multiprocessors
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and dense bf16/f32 rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # exponentials by the SFU (MUFU) alone: 16 a clock per SM on compute
 # capability 9.0 (CUDA C++ Programming Guide, throughput of arithmetic
 # instructions: base-2 exponential), 132 SMs at the 1.98 GHz boost clock
-PEAK_EXPS = 132 * 16 * 1.98e9
-# FMA-pipe instructions for one exp2 taken off the SFU: a degree-3
-# polynomial (3 FMAs) after one subtraction for the range reduction, the
-# least an emulated exp2 costs (the exponent's integer ops run on the INT pipe)
-FMA_PER_EXP = 4
+PEAK_EXPS = SMS * 16 * 1.98e9
+# FMA-pipe instructions for one exp2 taken off the SFU: one subtraction for
+# the range reduction, then a degree-5 polynomial (5 FMAs), the least that
+# holds f32 accuracy (a degree-3 one errs by ~1e-4 per exp, which a
+# 256-step product of decays carries past the scan's f32 rtol of 5e-4);
+# the exponent's integer ops run on the INT pipe
+FMA_PER_EXP = 6
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX kernel tests' tolerances
 
 # the JAX kernel tests' shapes (tests/test_kernels.py), then the head dims
@@ -113,6 +124,23 @@ SSM_ARCH, HYBRID_ARCH = "falcon_mamba_7b", "zamba2_2_7b"
 # (atol, rtol), the JAX scan test's in f32
 SCAN_SHAPES = [(1, 32, 16, 4), (2, 96, 64, 8), (1, 100, 128, 16)]
 SCAN_SERVE = {SSM_ARCH: (1, PROMPT_LEN, 8192, 16), HYBRID_ARCH: (1, PROMPT_LEN, 5120, 64)}
+# the scan kernel's time chunk (TC in csrc/mamba_scan.cu); at both serve
+# widths: one step, a step either side of the chunk, and 300 steps; the
+# (Bt, S) = (4, 512) that SSM training will run; 2048 steps at falcon's
+# width, where the error of the decays piles up
+SCAN_CHUNK = 32
+SCAN_EDGES = [(1, s, din, n) for s in (1, SCAN_CHUNK - 1, SCAN_CHUNK + 1, 300)
+              for (_, _, din, n) in SCAN_SERVE.values()]
+SCAN_TRAIN = {arch: (4, 512, din, n) for arch, (_, _, din, n) in SCAN_SERVE.items()}
+SCAN_LONG = (1, 2048, 8192, 16)
+# N = 4 and 8 (one and two lanes a channel) over many blocks
+SCAN_WIDE = [(8, 64, 8192, 4), (4, 64, 8192, 8)]
+# B and C one element past an aligned start, x and dt slices one element
+# in, Din ragged against the block: staged by plain loads
+SCAN_MISALIGNED = (2, 100, 1000, 16)
+# the kernel's layout (csrc/mamba_scan.cu `Shape`): 4 states a lane, N / 4
+# lanes a channel, 128 threads a block and at most 64 channels
+SCAN_STATES_A_LANE, SCAN_BLOCK, SCAN_MAX_CHANNELS = 4, 128, 64
 SCAN_TOL = {"float32": (5e-5, 5e-4), "bfloat16": (2e-2, 2e-2)}
 # zamba2-2.7B's shared attention block: 32 heads of 80, group 1
 HYBRID_FA = (1, PROMPT_LEN, PROMPT_LEN, 32, 32, 80)
@@ -401,30 +429,49 @@ def scan_bound(bt: int, s: int, din: int, n: int, elt: int) -> tuple[float, str,
 def phase_kernels_scan(torch, ms) -> dict:
     """The scan kernel against its plain version (y and h_final, from zeros
     and from a given h0; B and C strided slices of one projection, as on
-    the model path), its refusal under autograd, then its times at the
-    two serve shapes (bf16).  Returns its row for the kernels line, at
+    the model path; also misaligned slices), bit-for-bit equal results
+    from two launches, its refusal under autograd, then its times and
+    launch shapes at the two serve shapes and, for information, at the
+    training shapes (bf16).  Returns its row for the kernels line, at
     falcon-mamba-7B's shape."""
     gen = torch.Generator(device="cuda").manual_seed(2)
 
-    def inputs(shape, dt):
+    def inputs(shape, dt, offset=0):
+        """B and C slices of one projection; with ``offset``, every row of
+        x, dt, B and C starts ``offset`` elements past an aligned one."""
         bt, s, din, n = shape
         g = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
-        proj = (0.5 * g(bt, s, 3 * n)).to(dt)
-        return ((0.5 * g(bt, s, din)).to(dt), (0.5 * g(bt, s, din)).to(dt),
-                -torch.exp(0.3 * g(din, n)), proj[..., n:2 * n], proj[..., 2 * n:],
-                1 + 0.5 * g(din), 0.5 * g(bt, din, n))
+        wide = lambda: (0.5 * g(bt, s, din + offset)).to(dt)[..., offset:]
+        proj = (0.5 * g(bt, s, 3 * n + offset)).to(dt)[..., offset:]
+        return (wide(), wide(), -torch.exp(0.3 * g(din, n)), proj[..., n:2 * n],
+                proj[..., 2 * n:], 1 + 0.5 * g(din), 0.5 * g(bt, din, n))
 
     def over_tol(got, want, atol, rtol):
         """max(|got - want| - rtol·|want|): at most atol where the two agree."""
         want = want.float()
         return ((got.float() - want).abs() - rtol * want.abs()).max().item()
 
+    def launch(shape):
+        """The kernel's launch shape."""
+        bt, _, din, n = shape
+        lanes = n // SCAN_STATES_A_LANE
+        ch = min(SCAN_MAX_CHANNELS, SCAN_BLOCK // lanes)
+        blocks, warps = bt * -(-din // ch), -(-ch * lanes // 32)
+        return {"states_a_lane": SCAN_STATES_A_LANE, "channels_a_block": ch, "blocks": blocks,
+                "warps_a_block": warps,
+                # if every block is resident at once (registers and shared
+                # memory allow it at the serve shapes), spread evenly
+                "warps_a_sm": [blocks // SMS * warps, -(-blocks // SMS) * warps]}
+
+    cases = ([(shape, 0) for shape in list(SCAN_SERVE.values()) + SCAN_SHAPES + SCAN_EDGES
+              + list(SCAN_TRAIN.values()) + [SCAN_LONG] + SCAN_WIDE]
+             + [(SCAN_MISALIGNED, 1)])
     checks, row_err = [], 0.0
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         atol, rtol = SCAN_TOL[dtype]
-        for shape in list(SCAN_SERVE.values()) + SCAN_SHAPES:
-            x, dtr, A, B, C, D, h0 = inputs(shape, dt)
+        for shape, offset in cases:
+            x, dtr, A, B, C, D, h0 = inputs(shape, dt, offset)
             for start in (None, h0):
                 y, h = ms.mamba_scan(x, dtr, A, B, C, D, start)
                 y_ref, h_ref = ms.mamba_scan_plain(x, dtr, A, B, C, D, start)
@@ -434,12 +481,19 @@ def phase_kernels_scan(torch, ms) -> dict:
                       and over_tol(h, h_ref, atol, rtol) <= atol
                       and y.dtype == dt and h.dtype == torch.float32)
                 checks.append({"kernel": "mamba_scan", "dtype": dtype, "shape": shape,
-                               "h0": start is not None, "max_abs_err": errs,
+                               "offset": offset, "h0": start is not None,
+                               "max_abs_err": errs,
                                "max_abs_plain": {"y": y_ref.float().abs().max().item(),
                                                  "h_final": h_ref.abs().max().item()},
                                "tol": [atol, rtol], "ok": ok})
                 if shape == SCAN_SERVE[SSM_ARCH] and dtype == "bfloat16" and start is None:
                     row_err = errs["y"]
+        for shape in SCAN_SERVE.values():
+            x, dtr, A, B, C, D, h0 = inputs(shape, dt)
+            first, second = (ms.mamba_scan(x, dtr, A, B, C, D, h0) for _ in range(2))
+            checks.append({"kernel": "mamba_scan", "check": "two launches, identical bits",
+                           "dtype": dtype, "shape": shape,
+                           "ok": all(torch.equal(u, v) for u, v in zip(first, second))})
     x, dtr, A, B, C, D, _ = inputs(SCAN_SHAPES[0], torch.float32)
     try:
         ms.mamba_scan(x.requires_grad_(True), dtr, A, B, C, D)
@@ -448,21 +502,28 @@ def phase_kernels_scan(torch, ms) -> dict:
         refused = True
     checks.append({"kernel": "mamba_scan", "check": "raises under autograd", "ok": refused})
     if not all(c["ok"] for c in checks):
-        emit({"phase": "kernels_scan", "ok": False, "checks": checks})
+        emit({"phase": "kernels_scan", "ok": False,
+              "failed": [c for c in checks if not c["ok"]], "n_checks": len(checks)})
         raise AssertionError("the scan kernel disagrees with its plain version")
 
-    timing = {}
-    for arch, shape in SCAN_SERVE.items():
+    def timed(shape, plain):
         x, dtr, A, B, C, D, _ = inputs(shape, torch.bfloat16)
         b_ms, b_by, b_terms = scan_bound(*shape, elt=2)
         kernel = lambda: ms.mamba_scan(x, dtr, A, B, C, D)
-        timing[arch] = dict(
+        return dict(
             ms=cuda_ms(kernel), eager_ms=eager_ms(kernel),
             # the plain version is a loop of S steps: fewer calls per graph
-            plain_ms=cuda_ms(lambda: ms.mamba_scan_plain(x, dtr, A, B, C, D), iters=2, reps=3),
+            plain_ms=(cuda_ms(lambda: ms.mamba_scan_plain(x, dtr, A, B, C, D), iters=2, reps=3)
+                      if plain else None),
             library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_terms_ms=b_terms,
-            shape=list(shape), exps=shape[0] * shape[1] * shape[2] * (shape[3] + 1))
-    emit({"phase": "kernels_scan", "ok": True, "checks": checks, "timing_bf16": timing,
+            shape=list(shape), exps=shape[0] * shape[1] * shape[2] * (shape[3] + 1),
+            launch=launch(shape))
+
+    timing = {arch: timed(shape, plain=True) for arch, shape in SCAN_SERVE.items()}
+    # for information: the shapes SSM training will run
+    timing_train = {arch: timed(shape, plain=False) for arch, shape in SCAN_TRAIN.items()}
+    emit({"phase": "kernels_scan", "ok": True, "n_checks": len(checks), "checks": checks,
+          "timing_bf16": timing, "timing_train_bf16": timing_train,
           "library": "none: no single PyTorch call computes the selective scan"})
     return {**timing[SSM_ARCH], "max_abs_err": row_err, "by_arch": timing}
 
@@ -863,9 +924,15 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     _build.library()
+    report = lib.parent / "mamba_scan.ptxas.txt"
     emit({"phase": "env", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "build_s": time.perf_counter() - t0, "library": str(lib.relative_to(ROOT)),
+          # each scan instantiation's name, then its stack and spills, then registers
+          "ptxas_mamba_scan": [
+              line.split("ptxas info    :")[-1].strip()
+              for line in (report.read_text().splitlines() if report.exists() else [])
+              if any(w in line for w in ("entry function", "spill", "registers"))],
           "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                          "cudnn": torch.backends.cudnn.allow_tf32}})
 

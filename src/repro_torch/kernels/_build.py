@@ -4,9 +4,11 @@ The sources under ``csrc/`` have a plain C interface, so they compile in
 seconds without PyTorch's headers.  Each ``.cu`` file is compiled to an
 object by its own ``nvcc`` process, all started together, and the objects
 are linked into one shared library under ``build/repro_torch/<key>/`` at
-the root of the checkout.  The key is a hash of the sources and flags, so
-a second process (or a second run) loads the library already built.  The
-build happens at first use, never at import.
+the root of the checkout, beside each source's ``ptxas`` report
+(``<stem>.ptxas.txt``: registers, spills and stack of every kernel).  The
+key is a hash of the sources and flags, so a second process (or a second
+run) loads the library already built.  The build happens at first use,
+never at import.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
+COMPILE_FLAGS = ["-Xptxas", "-v"]   # ptxas reports registers and spills on stderr
 
 P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
@@ -47,7 +50,7 @@ def _nvcc() -> str:
 
 def _key() -> str:
     """Hash of the flags and of every file under csrc/ (headers too)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + COMPILE_FLAGS).encode())
     for p in sorted(CSRC.iterdir()):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -66,7 +69,8 @@ def build() -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = str(os.getpid())
     objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *COMPILE_FLAGS, "-c", str(src),
+                               "-o", str(obj)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for src, obj in zip(sources, objs)]
     errors = []
@@ -74,6 +78,8 @@ def build() -> Path:
         _, err = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {src.name} (rc {proc.returncode}):\n{err}")
+        else:
+            (out_dir / f"{src.stem}.ptxas.txt").write_text(err)
     if errors:
         raise RuntimeError("\n".join(errors))
     tmp = out_dir / f"libkernels.{tag}.so"

@@ -60,6 +60,27 @@ def test_scan_plain_matches_pallas_and_ref(shape, with_h0):
                                  interpret=True))
 
 
+@pytest.mark.parametrize("s", [1, 31, 33])
+def test_scan_of_offset_slices_matches_ref(s):
+    """x and dt one element into wider rows, B and C strided slices of one
+    projection one element past its start (the card's plain-load staging),
+    at lengths either side of the kernel's 32-step chunk."""
+    bt, din, n = 2, 24, 16
+    x, dt, A, B, C, D, h0 = _scan_inputs(1, bt, s, din, n, with_h0=True)
+    rng = np.random.default_rng(2)
+    wide = lambda a: np.concatenate([rng.standard_normal(a.shape[:-1] + (1,)), a],
+                                    axis=-1).astype(np.float32)
+    proj = wide(np.concatenate([0.5 * rng.standard_normal((bt, s, n)), B, C], -1))
+    x_w, dt_w, proj_t = map(torch.from_numpy, (wide(x), wide(dt), proj))
+    slices = (x_w[..., 1:], dt_w[..., 1:], torch.from_numpy(A), proj_t[..., 1 + n:1 + 2 * n],
+              proj_t[..., 1 + 2 * n:], torch.from_numpy(D), torch.from_numpy(h0))
+    assert not slices[3].is_contiguous() and slices[0].storage_offset() == 1
+    y, h = mamba_scan(*slices)
+    y_ref, h_ref = ref.mamba_scan_ref(*map(jnp.asarray, (x, dt, A, B, C, D, h0)))
+    _close(y, y_ref)
+    _close(h, h_ref)
+
+
 def test_scan_final_state_of_a_ragged_sequence_matches_ref():
     """S = 300 is not a multiple of the JAX layer's 256-step chunk: the
     port's h_final is the reference's, the state after step 299."""
