@@ -60,9 +60,27 @@ prints no result line:
                ``examples/serve_lm_torch.py`` at its defaults, ``python -m
                repro_torch.launch.serve --arch qwen2_0_5b`` and
                ``examples/train_lm_torch.py --arch qwen2_0_5b --smoke
-               --steps 20``: exit 0, every request done, losses falling.
+               --steps 20``: exit 0, every request done, losses falling;
+               then ``examples/train_lm_torch.py --backend threads
+               --shards 2`` at its defaults (the 20M demo model, 300
+               steps under the Myrmics runtime): exit 0, losses falling.
+12. train_myrmics -- full-width qwen2-0.5B (bf16) trained under the
+               Myrmics runtime, ``run_myrmics_training(backend="threads")``:
+               2 gradient tasks of 2 x 512 tokens a step on 2 workers,
+               then the update task.  Losses finite, the first near
+               ln(vocab); launch counts 2·L·steps·shards forward and
+               L·steps·shards backward; every task done, as many as the
+               same DAG runs on ``backend="sim"`` on the CPU.  Host ms a
+               step beside the train phase's and beside the same run in
+               one gradient task a step (not counted), message counts,
+               peak memory of each step.
+13. train_myrmics_parity -- 2 layers, f32, 3 steps: the card on
+               ``threads`` against the CPU on ``sim`` (losses and final
+               parameters within 1e-4 of each leaf's largest magnitude),
+               and the card on ``sim`` against the card on ``threads``
+               (identical bits).
 
-Every counted run (3, 5, 7) sets every kernel's launch counter to 0
+Every counted run (3, 5, 7, 12) sets every kernel's launch counter to 0
 just before it and reads all of them just after.  The line before the
 last lists each kernel with its launches summed over those runs.
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card;
@@ -153,6 +171,10 @@ SSM_PARITY_LAYERS = {SSM_ARCH: 2, HYBRID_ARCH: 6}
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 512, 4, 4
 TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 14, 2, 64)   # its attention
 RESTART_LAYERS, PARITY_LAYERS, PARITY_SEQ = 2, 2, 64
+
+# the Myrmics phases: the train phase's batch in 2 gradient tasks a step;
+# the parity run at 2 layers, f32, seq 64, 3 steps
+MYRMICS_SHARDS, MYRMICS_PARITY_STEPS = 2, 3
 
 # the launcher phase: the launcher's defaults
 LAUNCH_STEPS, LAUNCH_CKPT_EVERY, LAUNCH_SEQ, LAUNCH_BATCH = 20, 10, 128, 4
@@ -658,9 +680,9 @@ def phase_parity(torch, get_config, LM, arch=ARCH, n_layers=None, phase="parity"
         raise AssertionError("card and CPU disagree")
 
 
-def phase_train(torch, get_config, counters, bwd) -> dict:
+def phase_train(torch, get_config, counters, bwd) -> tuple[dict, float]:
     """Full-width training through the loop, then a restart at reduced
-    depth.  Returns the main run's launch counts."""
+    depth.  Returns the main run's launch counts and mean warm step ms."""
     import tempfile
     from repro_torch.train.loop import FailurePlan, train
     cfg = get_config(ARCH)
@@ -724,7 +746,7 @@ def phase_train(torch, get_config, counters, bwd) -> dict:
           "ok": not problems})
     if problems:
         raise AssertionError("; ".join(problems))
-    return launches
+    return launches, mean_ms
 
 
 def phase_train_parity(torch, get_config, LM) -> None:
@@ -763,6 +785,138 @@ def phase_train_parity(torch, get_config, LM) -> None:
           "worst_leaf": max(leaf_err, key=leaf_err.get), "tol": tol, "ok": ok})
     if not ok:
         raise AssertionError("card and CPU train steps disagree")
+
+
+def phase_train_myrmics(torch, get_config, counters, plain_step_ms) -> dict:
+    """Full-width training under the Myrmics runtime on the threads
+    backend: the train phase's model, sequence, batch and steps, the
+    batch split into ``MYRMICS_SHARDS`` gradient tasks a step.  Returns
+    the run's launch counts."""
+    from repro_torch.train import orchestrator
+    cfg = get_config(ARCH)
+    stamps, step_peaks = [], []
+
+    def on_step(step, loss):
+        stamps.append(time.perf_counter())
+        step_peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rep, run_rep = orchestrator.run_myrmics_training(
+        cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+        n_shards=MYRMICS_SHARDS, seed=0, backend="threads", device="cuda", on_step=on_step)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    wall = time.perf_counter() - t0
+    peak_gb = max(step_peaks + [torch.cuda.max_memory_allocated() / 1e9])
+    # the same DAG on the virtual-time backend, on the CPU, at the smoke size
+    _, sim_rep = orchestrator.run_myrmics_training(
+        cfg.smoke(), seq_len=16, global_batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+        n_shards=MYRMICS_SHARDS, backend="sim", device="cpu")
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]   # steps 1.. (warm)
+    mean_ms = sum(step_ms) / len(step_ms)
+    n_layers, tasks = cfg.n_layers, TRAIN_STEPS * MYRMICS_SHARDS
+    want = {**dict.fromkeys(counters, 0),
+            # remat (LM.loss's default) runs each layer again in the backward
+            "flash_attention_fwd": 2 * n_layers * tasks,
+            "flash_attention_bwd": n_layers * tasks}
+    ln_vocab = math.log(cfg.padded_vocab)
+    problems = []
+    if launches != want:
+        problems.append(f"launches {launches}, want {want}")
+    if not all(math.isfinite(x) for x in rep.losses) or len(rep.losses) != TRAIN_STEPS:
+        problems.append(f"losses {rep.losses}")
+    elif abs(rep.losses[0] - ln_vocab) > 0.5:
+        problems.append(f"first loss {rep.losses[0]} is not near ln(vocab) {ln_vocab}")
+    if not run_rep.tasks_done == run_rep.tasks_spawned == sim_rep.tasks_done:
+        problems.append(f"tasks: threads {run_rep.tasks_done} done of {run_rep.tasks_spawned}, "
+                        f"sim {sim_rep.tasks_done}")
+    emit({"phase": "train_myrmics", "arch": ARCH, "n_layers": n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.param_dtype, "seq_len": TRAIN_SEQ,
+          "global_batch": TRAIN_BATCH, "n_shards": MYRMICS_SHARDS, "steps": TRAIN_STEPS,
+          "backend": run_rep.backend, "losses": rep.losses, "ln_padded_vocab": ln_vocab,
+          "first_step_ms": 1e3 * (stamps[0] - t0), "step_ms": step_ms,
+          "mean_step_ms": mean_ms, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3,
+          "wall_s": wall, "runtime_wall_s": run_rep.total_cycles, "peak_mem_gb": peak_gb,
+          "peak_mem_gb_by_step": step_peaks,
+          "launches": launches, "launches_wanted": want,
+          "tasks_spawned": run_rep.tasks_spawned, "tasks_done": run_rep.tasks_done,
+          "sim_tasks_done": sim_rep.tasks_done,
+          "tasks_by_worker": {w: s.tasks_executed for w, s in run_rep.workers.items()},
+          "msgs_sent": {"workers": sum(s.msgs_sent for s in run_rep.workers.values()),
+                        "scheds": sum(s.msgs_sent for s in run_rep.scheds.values())},
+          "msg_kinds": run_rep.msg_kinds,
+          # for information: the plain loop at the same tokens a step
+          "loop_mean_step_ms": plain_step_ms, "step_ms_over_loop": mean_ms / plain_step_ms,
+          "ok": not problems})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
+
+
+def phase_train_myrmics_parity(torch, get_config, LM) -> None:
+    """2 layers, f32, 3 steps under the runtime from the same weights (drawn
+    on the CPU, moved to the card): the card on threads against the CPU on
+    sim, and the card on sim against the card on threads.  eps = 1e-2 as
+    in ``phase_train_parity``: Adam's first step is otherwise the sign of
+    g, which flips between two correct runs wherever g is near 0."""
+    from repro_torch.optim import AdamW
+    from repro_torch.train import orchestrator
+    from repro_torch.tree import flatten_with_keys, tree_map
+    cfg = replace(get_config(ARCH), n_layers=PARITY_LAYERS, param_dtype="float32",
+                  compute_dtype="float32")
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=MYRMICS_PARITY_STEPS, eps=1e-2)
+    kept, init, runtime = [], LM.init, orchestrator.Myrmics
+
+    class Recording(runtime):
+        """Keeps each runtime, so its final object store can be read."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            kept.append(self)
+
+    def cpu_init(self, seed=0):
+        return tree_map(lambda x: x.to(self.device), init(LM(self.cfg, device="cpu"), seed))
+
+    out = {}
+    LM.init, orchestrator.Myrmics = cpu_init, Recording
+    try:
+        for device, backend in (("cuda", "threads"), ("cuda", "sim"), ("cpu", "sim")):
+            rep, run_rep = orchestrator.run_myrmics_training(
+                cfg, seq_len=PARITY_SEQ, global_batch=TRAIN_BATCH,
+                steps=MYRMICS_PARITY_STEPS, n_shards=MYRMICS_SHARDS, seed=3, opt=opt,
+                backend=backend, device=device)
+            params = dict(flatten_with_keys(kept[-1].labelled_storage()["params"]))
+            out[device, backend] = (rep.losses, {k: v.cpu() for k, v in params.items()},
+                                    run_rep.tasks_done)
+    finally:
+        LM.init, orchestrator.Myrmics = init, runtime
+    (gl, gp, _), (sl, sp, _), (cl, cp, _) = (out["cuda", "threads"], out["cuda", "sim"],
+                                             out["cpu", "sim"])
+    rel = lambda a, b: ((a - b).abs().max() / (b.abs().max() + 1e-30)).item()
+    leaf_err = {k: rel(gp[k], cp[k]) for k in cp}
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(gl, cl, strict=True)]
+    tol = 1e-4
+    bits = gl == sl and all(torch.equal(gp[k], sp[k]) for k in sp)
+    sim_vs_threads = max(max((gp[k] - sp[k]).abs().max().item() for k in sp),
+                         max(abs(a - b) for a, b in zip(gl, sl, strict=True)))
+    ok = (max(leaf_err.values()) <= tol and max(loss_err) <= tol and bits
+          and all(math.isfinite(x) for x in gl))
+    emit({"phase": "train_myrmics_parity", "arch": ARCH, "n_layers": PARITY_LAYERS,
+          "dtype": "float32", "seq_len": PARITY_SEQ, "global_batch": TRAIN_BATCH,
+          "n_shards": MYRMICS_SHARDS, "steps": MYRMICS_PARITY_STEPS,
+          "losses_cuda_threads": gl, "losses_cuda_sim": sl, "losses_cpu_sim": cl,
+          "tasks_done": {f"{d}_{b}": v[2] for (d, b), v in out.items()},
+          "loss_rel_err": loss_err, "max_leaf_rel_err": max(leaf_err.values()),
+          "worst_leaf": max(leaf_err, key=leaf_err.get), "tol": tol,
+          "cuda_sim_vs_threads_max_abs_diff": sim_vs_threads,
+          "cuda_sim_vs_threads_identical_bits": bits, "ok": ok})
+    if not ok:
+        raise AssertionError("the Myrmics runs disagree: card vs CPU, or sim vs threads")
 
 
 def _run_launcher(cmd: list[str]) -> tuple[int, list[tuple[float, str]]]:
@@ -865,8 +1019,9 @@ def phase_examples(torch) -> None:
     """The smoke configs (head dim 16) on the card as a user runs them:
     the serving example at its defaults, the serving launcher without
     ``--full-config``, and the training example for a few steps into a
-    fresh checkpoint directory.  Each must exit 0; each serving run must
-    complete every request, and the training run must report its losses
+    fresh checkpoint directory; then the training example on the threads
+    backend at its defaults.  Each must exit 0; each serving run must
+    complete every request, and each training run must report its losses
     (it exits non-zero when the loss does not fall)."""
     import tempfile
     torch.cuda.empty_cache()        # the scripts are other processes on the same card
@@ -879,6 +1034,9 @@ def phase_examples(torch) -> None:
             "train_example": ([sys.executable, "-u", "examples/train_lm_torch.py", "--arch",
                                ARCH, "--smoke", "--steps", str(EXAMPLE_STEPS), "--ckpt-dir",
                                ckpt], None),
+            # the training example under the Myrmics runtime, at its defaults
+            "train_example_threads": ([sys.executable, "-u", "examples/train_lm_torch.py",
+                                       "--backend", "threads", "--shards", "2"], None),
         }
         results, problems = {}, []
         for name, (cmd, n_requests) in runs.items():
@@ -894,7 +1052,8 @@ def phase_examples(torch) -> None:
             if n_requests is not None and (len(stats) != 1
                                            or stats[0]["completed"] != n_requests):
                 problems.append(f"{name}: stats {stats}, want {n_requests} completed")
-            if n_requests is None and not any(line.startswith("done: first loss")
+            if n_requests is None and not any(line.startswith(("done: first loss",
+                                                               "done (threads backend"))
                                               for _, line in lines):
                 problems.append(f"{name}: no 'done' line")
     emit({"phase": "examples", "head_dim": 16, "runs": results, "ok": not problems})
@@ -971,8 +1130,12 @@ def main() -> int:
         phase_parity(torch, get_config, LM, arch, n_layers, phase="ssm_parity")
         gc.collect()
         torch.cuda.empty_cache()
-    runs.append(phase_train(torch, get_config, counters, kernels["flash_attention_bwd"]))
+    train_launches, train_step_ms = phase_train(torch, get_config, counters,
+                                                kernels["flash_attention_bwd"])
+    runs.append(train_launches)
     phase_train_parity(torch, get_config, LM)
+    runs.append(phase_train_myrmics(torch, get_config, counters, train_step_ms))
+    phase_train_myrmics_parity(torch, get_config, LM)
     phase_launcher(torch)
     phase_serve_launcher(torch)
     phase_examples(torch)

@@ -4,11 +4,13 @@ fault tolerance), the port's mirror of ``examples/train_lm.py``.
 
     PYTHONPATH=src python examples/train_lm_torch.py --steps 300     # ~20M params, GPU
     PYTHONPATH=src python examples/train_lm_torch.py --arch qwen2_0_5b --smoke --device cpu
+    PYTHONPATH=src python examples/train_lm_torch.py --backend threads --shards 2
 
 Any ported architecture is selectable with --arch (reduced to its smoke
-config with --smoke; its full config otherwise).  Only ``--backend
-loop`` (the plain training loop) is ported; the Myrmics-runtime
-backends come with the runtime's port.
+config with --smoke; its full config otherwise).  ``--backend loop`` is
+the plain training loop; ``--backend threads`` schedules each step as a
+Myrmics task DAG (``--shards`` gradient tasks, then the update) on the
+runtime's concurrent executor.  ``--backend procs`` is not ported yet.
 """
 
 import argparse
@@ -20,6 +22,7 @@ from repro_torch.configs import get_config
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamW
 from repro_torch.train.loop import FailurePlan, train
+from repro_torch.train.orchestrator import run_myrmics_training
 
 
 def default_20m() -> ModelConfig:
@@ -42,14 +45,14 @@ def main() -> None:
     ap.add_argument("--inject-failure", action="store_true",
                     help="kill a 'worker' mid-run to demo restart")
     ap.add_argument("--backend", choices=("loop", "threads", "procs"), default="loop",
-                    help="loop: the plain training loop (the only one ported)")
+                    help="loop: the plain training loop; threads: schedule each "
+                    "step as a Myrmics task DAG on the concurrent executor; "
+                    "procs: not ported yet")
+    ap.add_argument("--shards", type=int, default=4,
+                    help="data-parallel gradient shards (threads backend)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
 
-    if args.backend != "loop":
-        raise NotImplementedError(
-            f"--backend {args.backend} is not ported yet: ROADMAP.md Queue 1, "
-            "'Slice 5: training of the dense family under the Myrmics runtime'")
     if args.arch is None:
         cfg = default_20m()
     else:
@@ -68,17 +71,29 @@ def main() -> None:
         if step % 10 == 0:
             print(f"step {step:5d}  loss {loss:.4f}")
 
-    rep = train(cfg, seq_len=args.seq_len, global_batch=args.batch,
-                steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=50,
-                async_ckpt=True, failure_plan=plan, opt=opt,
-                on_step=on_step, device=args.device)
-    if not rep.losses:
-        print(f"no steps run: {args.ckpt_dir} already holds a checkpoint at "
-              f"step {args.steps} or later")
-        return
-    print(f"done: first loss {rep.losses[0]:.4f} -> last "
-          f"{rep.losses[-1]:.4f}; restarts={rep.restarts} "
-          f"stragglers={rep.stragglers}")
+    if args.backend in ("threads", "procs"):
+        if args.inject_failure:
+            raise SystemExit("--inject-failure is loop-backend only")
+        rep, run_rep = run_myrmics_training(
+            cfg, seq_len=args.seq_len, global_batch=args.batch,
+            steps=args.steps, n_shards=args.shards, opt=opt,
+            on_step=on_step, backend=args.backend, device=args.device)
+        print(f"done ({run_rep.backend} backend, {args.shards} shards, "
+              f"{run_rep.tasks_done} tasks, "
+              f"{run_rep.total_cycles:.1f}s wall): "
+              f"first loss {rep.losses[0]:.4f} -> last {rep.losses[-1]:.4f}")
+    else:
+        rep = train(cfg, seq_len=args.seq_len, global_batch=args.batch,
+                    steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=50,
+                    async_ckpt=True, failure_plan=plan, opt=opt,
+                    on_step=on_step, device=args.device)
+        if not rep.losses:
+            print(f"no steps run: {args.ckpt_dir} already holds a checkpoint at "
+                  f"step {args.steps} or later")
+            return
+        print(f"done: first loss {rep.losses[0]:.4f} -> last "
+              f"{rep.losses[-1]:.4f}; restarts={rep.restarts} "
+              f"stragglers={rep.stragglers}")
     if rep.losses[-1] >= rep.losses[0]:
         raise SystemExit("loss did not decrease")
 

@@ -8,17 +8,20 @@ the root of the checkout, beside each source's ``ptxas`` report
 (``<stem>.ptxas.txt``: registers, spills and stack of every kernel).  The
 key is a hash of the sources and flags, so a second process (or a second
 run) loads the library already built.  The build happens at first use,
-never at import.
+never at import, and once per process: a lock holds concurrent first
+launches (the Myrmics threads backend runs tasks on several threads)
+until the one build and load are done.  The wrappers count their
+launches through ``count_launch``, under a lock of its own.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -93,17 +96,33 @@ def build() -> Path:
     return lib
 
 
-@functools.cache
+_LIBRARY: ctypes.CDLL | None = None
+_LIBRARY_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.cuda_error_string.argtypes = [I]
-    lib.cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    """The loaded kernel library, built on first call.  Callers on other
+    threads wait for that build instead of starting their own."""
+    global _LIBRARY
+    with _LIBRARY_LOCK:
+        if _LIBRARY is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.cuda_error_string.argtypes = [I]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+            _LIBRARY = lib
+        return _LIBRARY
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``: a read-modify-write, so under a
+    lock, or two threads launching at once could lose a count."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(rc: int, name: str) -> None:

@@ -98,7 +98,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         *v_cache.stride()[:3], o.stride(0), o.stride(2), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "decode_attention")
-    decode_attention.launches += 1
+    _build.count_launch(decode_attention)
     return o
 
 

@@ -123,7 +123,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *o.stride()[:3], int(causal), q_offset, kv_len, 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention_fwd")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return (o, lse) if return_lse else o
 
 

@@ -93,7 +93,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(causal), q_offset, 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
+    _build.count_launch(flash_attention_bwd)
     return dq, dk, dv
 
 

@@ -109,7 +109,7 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         B.stride(0), B.stride(1), C.stride(0), C.stride(1),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "mamba_scan")
-    mamba_scan.launches += 1
+    _build.count_launch(mamba_scan)
     return y, h_final
 
 

@@ -23,6 +23,7 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.transformer import LM  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.train.loop import train  # noqa: E402
+from repro_torch.train.orchestrator import run_myrmics_training  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -68,6 +69,7 @@ ENTRY_POINTS = {
     "LM": lambda cfg, tmp: LM(cfg),
     "ServingEngine": lambda cfg, tmp: ServingEngine(cfg),
     "train": lambda cfg, tmp: train(cfg, steps=1, ckpt_dir=str(tmp)),
+    "run_myrmics_training": lambda cfg, tmp: run_myrmics_training(cfg, steps=1),
     "launch.train": lambda cfg, tmp: launch_train.main(
         ["--arch", "qwen2_0_5b", "--steps", "1", "--ckpt-dir", str(tmp)]),
     "launch.serve": lambda cfg, tmp: launch_serve.main(["--arch", "qwen2_0_5b"]),

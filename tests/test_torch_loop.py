@@ -83,9 +83,21 @@ def test_train_example_runs_on_cpu(tmp_path):
 
 
 def test_train_example_names_the_roadmap_slice_for_the_runtime_backends():
-    r = _run_example("train_lm_torch.py", "--backend", "threads", "--device", "cpu")
+    """``--backend procs`` is not ported yet; the runtime names its slice."""
+    r = _run_example("train_lm_torch.py", "--backend", "procs", "--arch", "qwen2_0_5b",
+                     "--smoke", "--device", "cpu", "--steps", "2", "--seq-len", "16",
+                     "--batch", "2", "--shards", "2")
     assert r.returncode != 0
     assert "NotImplementedError" in r.stderr and "ROADMAP.md" in r.stderr
+    assert "Slice 5" in r.stderr
+
+
+def test_train_example_runs_on_the_threads_backend_on_cpu():
+    r = _run_example("train_lm_torch.py", "--backend", "threads", "--shards", "2",
+                     "--arch", "qwen2_0_5b", "--smoke", "--device", "cpu", "--steps", "20",
+                     "--seq-len", "32", "--batch", "4")
+    assert r.returncode == 0, r.stderr
+    assert "done (threads backend, 2 shards, 61 tasks" in r.stdout
 
 
 def test_serve_example_runs_on_cpu():
