@@ -8,7 +8,10 @@ prints no result line:
 
 1. env      -- card, power limit, versions; builds the CUDA kernels and
                prints ptxas's registers and spills of the scan kernel's
-               instantiations.
+               instantiations.  Meanwhile two spawned processes build
+               the kernels into an empty directory; both must load the
+               one library path and launch a correct forward
+               (procs_cold_build).
 2. kernels  -- each attention kernel against its plain version on the
                card, at the main paths' shapes (qwen2-0.5B's serve and
                training shapes, zamba2-2.7B's shared block's, head dim
@@ -63,7 +66,8 @@ prints no result line:
                --steps 20``: exit 0, every request done, losses falling;
                then ``examples/train_lm_torch.py --backend threads
                --shards 2`` at its defaults (the 20M demo model, 300
-               steps under the Myrmics runtime): exit 0, losses falling.
+               steps under the Myrmics runtime) and ``--backend procs
+               --shards 2 --smoke --steps 20``: exit 0, losses falling.
 12. train_myrmics -- full-width qwen2-0.5B (bf16) trained under the
                Myrmics runtime, ``run_myrmics_training(backend="threads")``:
                2 gradient tasks of 2 x 512 tokens a step on 2 workers,
@@ -71,17 +75,39 @@ prints no result line:
                ln(vocab); launch counts 2·L·steps·shards forward and
                L·steps·shards backward; every task done, as many as the
                same DAG runs on ``backend="sim"`` on the CPU.  Host ms a
-               step beside the train phase's and beside the same run in
-               one gradient task a step (not counted), message counts,
-               peak memory of each step.
+               step beside the train phase's, message counts, peak
+               memory of each step.
 13. train_myrmics_parity -- 2 layers, f32, 3 steps: the card on
                ``threads`` against the CPU on ``sim`` (losses and final
                parameters within 1e-4 of each leaf's largest magnitude),
                and the card on ``sim`` against the card on ``threads``
                (identical bits).
+14. train_myrmics_procs -- full-width qwen2-0.5B (bf16) under the
+               runtime on ``backend="procs"``: the tasks in 2 spawned
+               worker processes, every object shipped to them as CPU
+               tensors.  Hosted by ``python chip_smoke.py --procs-train``,
+               a process that sets up no CUDA; its workers import this
+               file and log their launches.  Launches 2·L·steps·shards
+               forward and L·steps·shards backward in the workers, none in
+               the host; tasks done as on sim; the card's compute apps
+               grow by the 2 workers.  Prints step ms beside the loop's
+               and the threads runtime's at the same depth (run after it
+               in this process), bytes shipped a step by frame kind and
+               by task kind and direction, RSS.
+15. procs_start -- ``python chip_smoke.py --procs-start``: workers forked
+               (forced) and spawned from a host without CUDA, each making
+               a CUDA call, timed; forked after ``torch.cuda.is_available()``
+               they must fail the run.
+16. train_myrmics_procs_parity -- the parity setup (13) on procs against
+               the card on threads: within 1e-4, identical bits wanted.
+17. faults_procs -- the same with one worker process killed in step 1 by
+               the runtime's ``FaultPlan``, at the middle of the task it
+               ran longest in 16's run: one worker killed, a task
+               replayed, final losses and parameters identical to 16's.
 
-Every counted run (3, 5, 7, 12) sets every kernel's launch counter to 0
-just before it and reads all of them just after.  The line before the
+Every counted run (3, 5, 7, 12, 14) sets every kernel's launch counter
+to 0 just before it and reads all of them just after (14: the workers'
+logs, in a fresh directory).  The line before the
 last lists each kernel with its launches summed over those runs.
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA card;
 imports nothing of JAX or of the JAX package.
@@ -175,6 +201,19 @@ RESTART_LAYERS, PARITY_LAYERS, PARITY_SEQ = 2, 2, 64
 # the Myrmics phases: the train phase's batch in 2 gradient tasks a step;
 # the parity run at 2 layers, f32, seq 64, 3 steps
 MYRMICS_SHARDS, MYRMICS_PARITY_STEPS = 2, 3
+# the procs phases.  Every object crosses the wire at every task, at ~5 s
+# a GB on the card's host (PERF.md), so they are cut to fit the smoke:
+# the full-width run to 2 layers and 3 steps (2 warm), the parity and
+# fault runs to 2 steps (the kill lands in step 1).  ``python
+# chip_smoke.py --procs-train <out.json> <layers> <steps>`` runs the
+# full-width host alone at any depth.  A worker process of the
+# full-width run logs its kernel launches to a file of its own in the
+# directory CHILD_LOG_ENV names (set only for the process hosting it).
+PROCS_LAYERS, PROCS_STEPS, PROCS_PARITY_STEPS = 2, 3, 2
+CHILD_LOG_ENV, PROCS_TIMEOUT_S = "CHIP_SMOKE_CHILD_LOG", 900
+# the kernel counter that each wrapper's name stands for
+COUNTER_OF = {"flash_attention": "flash_attention_fwd", "decode_attention": "decode_attention",
+              "flash_attention_bwd": "flash_attention_bwd", "mamba_scan": "mamba_scan"}
 
 # the launcher phase: the launcher's defaults
 LAUNCH_STEPS, LAUNCH_CKPT_EVERY, LAUNCH_SEQ, LAUNCH_BATCH = 20, 10, 128, 4
@@ -858,43 +897,61 @@ def phase_train_myrmics(torch, get_config, counters, plain_step_ms) -> dict:
     return launches
 
 
-def phase_train_myrmics_parity(torch, get_config, LM) -> None:
+def _parity_setup(get_config):
+    """The parity runs' config (2 layers, f32) and optimizer (eps 1e-2)."""
+    from repro_torch.optim import AdamW
+    cfg = replace(get_config(ARCH), n_layers=PARITY_LAYERS, param_dtype="float32",
+                  compute_dtype="float32")
+    return cfg, AdamW(lr=1e-3, warmup_steps=1, total_steps=MYRMICS_PARITY_STEPS, eps=1e-2)
+
+
+def _parity_run(LM, cfg, opt, device, backend, runtime, kept,
+                steps: int = MYRMICS_PARITY_STEPS) -> tuple:
+    """One parity run from the weights drawn on the CPU (moved to
+    ``device``), scheduled by ``runtime``, a ``Myrmics`` subclass that
+    appends each instance to ``kept``: (losses, final parameters on the
+    CPU by key, run report)."""
+    from repro_torch.train import orchestrator
+    from repro_torch.tree import flatten_with_keys, tree_map
+    init, base = LM.init, orchestrator.Myrmics
+
+    def cpu_init(self, seed=0):
+        return tree_map(lambda x: x.to(self.device), init(LM(self.cfg, device="cpu"), seed))
+
+    LM.init, orchestrator.Myrmics = cpu_init, runtime
+    try:
+        rep, run_rep = orchestrator.run_myrmics_training(
+            cfg, seq_len=PARITY_SEQ, global_batch=TRAIN_BATCH, steps=steps,
+            n_shards=MYRMICS_SHARDS, seed=3, opt=opt, backend=backend, device=device)
+    finally:
+        LM.init, orchestrator.Myrmics = init, base
+    params = dict(flatten_with_keys(kept[-1].labelled_storage()["params"]))
+    return rep.losses, {k: v.cpu() for k, v in params.items()}, run_rep
+
+
+def phase_train_myrmics_parity(torch, get_config, LM) -> tuple:
     """2 layers, f32, 3 steps under the runtime from the same weights (drawn
     on the CPU, moved to the card): the card on threads against the CPU on
     sim, and the card on sim against the card on threads.  eps = 1e-2 as
     in ``phase_train_parity``: Adam's first step is otherwise the sign of
-    g, which flips between two correct runs wherever g is near 0."""
-    from repro_torch.optim import AdamW
-    from repro_torch.train import orchestrator
-    from repro_torch.tree import flatten_with_keys, tree_map
-    cfg = replace(get_config(ARCH), n_layers=PARITY_LAYERS, param_dtype="float32",
-                  compute_dtype="float32")
-    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=MYRMICS_PARITY_STEPS, eps=1e-2)
-    kept, init, runtime = [], LM.init, orchestrator.Myrmics
+    g, which flips between two correct runs wherever g is near 0.
+    Returns the card's threads run's losses, and its parameters after
+    ``PROCS_PARITY_STEPS`` steps (a run of its own) for the procs parity."""
+    from repro_torch.core import Myrmics
+    cfg, opt = _parity_setup(get_config)
+    kept = []
 
-    class Recording(runtime):
+    class Recording(Myrmics):
         """Keeps each runtime, so its final object store can be read."""
 
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
             kept.append(self)
 
-    def cpu_init(self, seed=0):
-        return tree_map(lambda x: x.to(self.device), init(LM(self.cfg, device="cpu"), seed))
-
     out = {}
-    LM.init, orchestrator.Myrmics = cpu_init, Recording
-    try:
-        for device, backend in (("cuda", "threads"), ("cuda", "sim"), ("cpu", "sim")):
-            rep, run_rep = orchestrator.run_myrmics_training(
-                cfg, seq_len=PARITY_SEQ, global_batch=TRAIN_BATCH,
-                steps=MYRMICS_PARITY_STEPS, n_shards=MYRMICS_SHARDS, seed=3, opt=opt,
-                backend=backend, device=device)
-            params = dict(flatten_with_keys(kept[-1].labelled_storage()["params"]))
-            out[device, backend] = (rep.losses, {k: v.cpu() for k, v in params.items()},
-                                    run_rep.tasks_done)
-    finally:
-        LM.init, orchestrator.Myrmics = init, runtime
+    for device, backend in (("cuda", "threads"), ("cuda", "sim"), ("cpu", "sim")):
+        losses, params, run_rep = _parity_run(LM, cfg, opt, device, backend, Recording, kept)
+        out[device, backend] = (losses, params, run_rep.tasks_done)
     (gl, gp, _), (sl, sp, _), (cl, cp, _) = (out["cuda", "threads"], out["cuda", "sim"],
                                              out["cpu", "sim"])
     rel = lambda a, b: ((a - b).abs().max() / (b.abs().max() + 1e-30)).item()
@@ -917,6 +974,539 @@ def phase_train_myrmics_parity(torch, get_config, LM) -> None:
           "cuda_sim_vs_threads_identical_bits": bits, "ok": ok})
     if not ok:
         raise AssertionError("the Myrmics runs disagree: card vs CPU, or sim vs threads")
+    losses, params, _ = _parity_run(LM, cfg, opt, "cuda", "threads", Recording, kept,
+                                    PROCS_PARITY_STEPS)
+    return losses, params
+
+
+def phase_train_myrmics_procs_parity(torch, get_config, LM, threads_run) -> dict:
+    """The parity setup on procs, its workers spawned from this process
+    (which holds a CUDA context), against the card on threads: the same
+    kernels on the same card, and a copy through the CPU changes no bit,
+    so identical bits are wanted; within 1e-4 of each leaf's largest
+    magnitude and of each loss is required.  Returns the procs run's
+    losses, parameters and stamps for ``phase_faults_procs``."""
+    from repro_torch.core import Myrmics
+    cfg, opt = _parity_setup(get_config)
+    kept, stamps, traffic = [], [], {}
+    t0 = time.perf_counter()
+    losses, params, run_rep = _parity_run(LM, cfg, opt, "cuda", "procs",
+                                          _instrumented(Myrmics, kept, stamps, traffic), kept,
+                                          PROCS_PARITY_STEPS)
+    wall = time.perf_counter() - t0
+    tl, tp = threads_run
+    rel = lambda a, b: ((a - b).abs().max() / (b.abs().max() + 1e-30)).item()
+    leaf_err = {k: rel(params[k], tp[k]) for k in tp}
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(losses, tl, strict=True)]
+    bits = losses == tl and all(torch.equal(params[k], tp[k]) for k in tp)
+    tol = 1e-4
+    ok = (max(leaf_err.values()) <= tol and max(loss_err) <= tol
+          and run_rep.tasks_done == run_rep.tasks_spawned)
+    emit({"phase": "train_myrmics_procs_parity", "arch": ARCH, "n_layers": PARITY_LAYERS,
+          "dtype": "float32", "seq_len": PARITY_SEQ, "global_batch": TRAIN_BATCH,
+          "n_shards": MYRMICS_SHARDS, "steps": PROCS_PARITY_STEPS,
+          "losses_cuda_procs": losses, "losses_cuda_threads": tl, "loss_rel_err": loss_err,
+          "max_leaf_rel_err": max(leaf_err.values()),
+          "worst_leaf": max(leaf_err, key=leaf_err.get), "tol": tol,
+          "identical_bits": bits, "tasks_done": run_rep.tasks_done,
+          "tasks_spawned": run_rep.tasks_spawned, "wall_s": wall,
+          "step_ms": _step_ms(stamps, PROCS_PARITY_STEPS),
+          "wire_total_bytes": run_rep.wire_summary()["total_bytes"],
+          "traffic_by_task": {k: {"frames": f, "bytes": b} for k, (f, b) in sorted(traffic.items())},
+          "stamps": stamps, "ok": ok})
+    if not ok:
+        raise AssertionError("the card on procs and on threads disagree")
+    return {"losses": losses, "params": params, "stamps": stamps}
+
+
+def phase_faults_procs(torch, get_config, LM, clean) -> None:
+    """The parity setup on procs with one worker process killed in step 1
+    by the runtime's fault plan (``FaultPlan(kills=...)`` with region
+    snapshots), through a ``Myrmics`` subclass.  The victim is a worker
+    that does not host ``main`` (a suspended ``main`` dies with its
+    process, unrecoverably): the one that ran the longest task of step 1
+    in the uninjected run, killed at that task's middle, so that the kill
+    lands on a task in flight although a run's clock moves by a tenth
+    between runs.  What the victim had queued or in flight replays on the
+    survivor, and at least one task must replay; the tasks are pure and a
+    killed worker's writes never reach the host, so the final losses and
+    parameters must equal the uninjected run's bits."""
+    import tempfile
+    from repro_torch.core import Myrmics
+    from repro_torch.core.faults import FaultPlan
+    stamps = clean["stamps"]
+    done = {name: t for t, what, name, _ in stamps if what == "done"}
+    starts = {name: (t, w) for t, what, name, w in stamps if what == "start"}
+    main_worker = starts["main"][1]
+    lo, hi = done["upd0"], done["upd1"]
+    step1 = [(done[name] - t, name, w) for name, (t, w) in starts.items()
+             if lo <= t and w != main_worker and name in done]
+    if not step1:
+        raise AssertionError(f"no task of step 1 ran off main's worker {main_worker} "
+                             f"in the uninjected run: nothing to kill ({stamps})")
+    _, target, victim = max(step1)
+    at = (starts[target][0] + done[target]) / 2
+    cfg, opt = _parity_setup(get_config)
+    kept, st, traffic = [], [], {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_snapshots_") as snaps:
+        plan = FaultPlan(snapshot_dir=snaps, kills=((victim, at),))
+        losses, params, run_rep = _parity_run(
+            LM, cfg, opt, "cuda", "procs", _instrumented(Myrmics, kept, st, traffic, plan), kept,
+            PROCS_PARITY_STEPS)
+    fs = run_rep.fault_summary()
+    bits = losses == clean["losses"] and all(torch.equal(params[k], clean["params"][k])
+                                             for k in clean["params"])
+    # what the victim had started and not finished when the kill fired
+    done2 = {name: t for t, what, name, _ in st if what == "done"}
+    in_flight = [name for t, what, name, w in st
+                 if what == "start" and w == victim and t <= at < done2.get(name, math.inf)]
+    ok = (fs["workers_killed"] == 1 and fs["tasks_replayed"] >= 1 and bits
+          and run_rep.tasks_done == run_rep.tasks_spawned)
+    emit({"phase": "faults_procs", "arch": ARCH, "n_layers": PARITY_LAYERS, "dtype": "float32",
+          "steps": PROCS_PARITY_STEPS, "victim": victim, "main_worker": main_worker,
+          "kill_at_s": at, "step1_window_s": [lo, hi], "target_task": target,
+          "victim_in_flight_at_kill": in_flight,
+          "fault_summary": fs, "dead_workers": sorted(kept[-1].dead_workers),
+          "losses": losses, "losses_uninjected": clean["losses"], "identical_bits": bits,
+          "tasks_done": run_rep.tasks_done, "tasks_spawned": run_rep.tasks_spawned,
+          "stamps": st, "ok": ok})
+    if not ok:
+        raise AssertionError("the run with a killed worker differs from the clean run, "
+                             "or the kill did not land on a task in flight")
+
+
+# ---------------------------------------------------------------------------
+# the procs backend: task bodies in spawned worker processes
+# ---------------------------------------------------------------------------
+
+
+def _log_child_launches(directory: str) -> None:
+    """In a worker process of the full-width procs run: each kernel launch
+    also appends the kernel's name and the process's peak device bytes so
+    far to ``<directory>/<pid>.log``."""
+    import torch
+    from repro_torch.kernels import _build
+    count, path = _build.count_launch, os.path.join(directory, f"{os.getpid()}.log")
+
+    def logged(wrapper):
+        count(wrapper)
+        with open(path, "a") as f:
+            f.write(f"{wrapper.__name__} {torch.cuda.max_memory_allocated()}\n")
+    _build.count_launch = logged
+
+
+def _child_launches(directory: str) -> tuple[dict, dict]:
+    """(launches by counter summed over the worker processes, each process's
+    peak device bytes at its last launch), from the logs above."""
+    launches, peaks = dict.fromkeys(COUNTER_OF.values(), 0), {}
+    for name in sorted(os.listdir(directory)):
+        lines = Path(directory, name).read_text().split()
+        for wrapper, peak in zip(lines[::2], lines[1::2]):
+            launches[COUNTER_OF[wrapper]] += 1
+            peaks[name.removesuffix(".log")] = int(peak)
+    return launches, peaks
+
+
+def _instrumented(base, kept: list, stamps: list, traffic: dict, faults=None):
+    """A ``Myrmics`` subclass for the procs phases: it keeps each runtime;
+    stamps each shipped task's start and each completion with the run's
+    clock (``rt.sub.now``) as (seconds, "start" or "done", task, worker);
+    adds each frame's bytes, as the backend counts them, to
+    ``traffic["<out|in>:<task kind>"]`` (grad, upd, main); and passes
+    ``faults`` to the runtime."""
+    import threading
+
+    class Instrumented(base):
+        def __init__(self, *args, **kwargs):
+            if faults is not None:
+                kwargs["faults"] = faults
+            super().__init__(*args, **kwargs)
+            kept.append(self)
+            agent, sub, last, lock = self.worker_agent, self.sub, threading.local(), \
+                threading.Lock()
+            note, send, handle, done = (sub._note_wire, sub.send_frame, sub._handle_frame,
+                                        agent.on_complete)
+
+            def name_of(tid):
+                with agent._qlock:
+                    entry = agent._inflight.get(tid)
+                return entry[0].name if entry else "?"
+
+            def add(direction, name):
+                key = f"{direction}:{name.rstrip('0123456789.')}"
+                with lock:
+                    rec = traffic.setdefault(key, [0, 0])
+                    rec[0] += 1
+                    rec[1] += getattr(last, "nbytes", 0)
+                last.nbytes = 0
+
+            def noted(kind, nbytes, wid, outbound):
+                last.nbytes = nbytes
+                note(kind, nbytes, wid, outbound)
+
+            def sent(wid, msg):
+                if msg.kind == "x_exec":
+                    name = msg.args[0][5]
+                    stamps.append((sub.now, "start", name, wid))
+                elif msg.kind == "x_resume":
+                    name = name_of(msg.args[0])
+                else:
+                    task = agent.last_task_of(wid)
+                    name = task.name if task is not None else "?"
+                last.nbytes = 0
+                send(wid, msg)
+                add("out", name)
+
+            def handled(ch, msg):
+                add("in", name_of(msg.args[0]) if msg.args else "?")
+                handle(ch, msg)
+
+            def completed(w, tid):
+                name = name_of(tid)
+                done(w, tid)
+                stamps.append((sub.now, "done", name, w.core_id))
+
+            sub._note_wire, sub.send_frame, sub._handle_frame = noted, sent, handled
+            agent.on_complete = completed
+
+    return Instrumented
+
+
+def _step_ms(stamps: list, steps: int) -> list[float]:
+    """Warm step times: the intervals between the update tasks' completions."""
+    done = {name: t for t, what, name, _ in stamps if what == "done"}
+    ends = [done[f"upd{step}"] for step in range(steps)]
+    return [1e3 * (b - a) for a, b in zip(ends, ends[1:])]
+
+
+def procs_train_host(out_path: str, n_layers: str = str(PROCS_LAYERS),
+                     steps: str = str(PROCS_STEPS)) -> None:
+    """The host of ``train_myrmics_procs``, a process of its own that
+    touches no CUDA itself: full-width qwen2-0.5B at ``n_layers`` layers
+    through ``run_myrmics_training(backend="procs")`` for ``steps``
+    steps.  Writes its readings as JSON to ``out_path``; its own kernel
+    counters must stay at 0."""
+    import resource
+    import threading
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.train import orchestrator
+
+    counters = {"flash_attention_fwd": fa.flash_attention, "decode_attention": dec.decode_attention,
+                "flash_attention_bwd": fb.flash_attention_bwd, "mamba_scan": ms.mamba_scan}
+    smi_apps = ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"]
+
+    def apps():
+        out = subprocess.run(smi_apps, capture_output=True, text=True).stdout
+        return [line.strip() for line in out.splitlines() if line.strip()]
+
+    polls, free_gb, stop = [], [], threading.Event()
+
+    def poll():
+        while not stop.wait(1.0):
+            polls.append(apps())
+            with open("/proc/meminfo") as f:
+                free_gb.append(next(int(line.split()[1]) for line in f
+                                    if line.startswith("MemAvailable")) / 2**20)
+            if len(polls) % 30 == 0:        # progress, shown if the phase fails
+                print(f"{len(polls)} s: last stamp {stamps[-1:]}, "
+                      f"{free_gb[-1]:.1f} GB available", flush=True)
+
+    kept, stamps, traffic = [], [], {}
+    orchestrator.Myrmics = _instrumented(orchestrator.Myrmics, kept, stamps, traffic)
+    cfg, steps = replace(get_config(ARCH), n_layers=int(n_layers)), int(steps)
+    for fn in counters.values():
+        fn.launches = 0
+    before = apps()
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    t0 = time.perf_counter()
+    try:
+        rep, run_rep = orchestrator.run_myrmics_training(
+            cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=steps,
+            n_shards=MYRMICS_SHARDS, seed=0, backend="procs", device="cuda")
+    finally:
+        stop.set()
+        poller.join()
+    wall = time.perf_counter() - t0
+    rt = kept[0]
+    result = {
+        "n_layers": cfg.n_layers, "steps": steps,
+        "losses": rep.losses, "wall_s": wall, "runtime_wall_s": run_rep.total_cycles,
+        "step_ms": _step_ms(stamps, steps), "stamps": stamps,
+        "tasks_spawned": run_rep.tasks_spawned, "tasks_done": run_rep.tasks_done,
+        "tasks_by_worker": {w: s.tasks_executed for w, s in run_rep.workers.items()},
+        "proc_report": rt.sub.proc_report(), "wire": run_rep.wire_summary(),
+        "traffic_by_task": {k: {"frames": f, "bytes": b} for k, (f, b) in sorted(traffic.items())},
+        "host_launches": {name: fn.launches for name, fn in counters.items()},
+        "host_cuda_initialized": torch.cuda.is_initialized(),
+        "host_peak_rss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+        "workers_peak_rss_gb": resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 2**20,
+        "compute_apps_before": before, "compute_apps_during": polls,
+        "host_min_available_gb": min(free_gb, default=None),
+    }
+    Path(out_path).write_text(json.dumps(result))
+
+
+def _run_host(mode: str, timeout: float, env: dict | None = None) -> dict:
+    """Run this file as ``python chip_smoke.py <mode> <out.json>`` in a
+    process of its own; return what it wrote, or raise with its output."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_host_") as tmp:
+        out = os.path.join(tmp, "out.json")
+        try:
+            r = subprocess.run([sys.executable, "-u", str(ROOT / "chip_smoke.py"), mode, out],
+                               cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+                               env={**os.environ, **(env or {})})
+        except subprocess.TimeoutExpired as e:
+            raise AssertionError(f"{mode}: over {timeout} s\n{(e.stdout or b'')[-3000:]}") from e
+        if r.returncode != 0 or not os.path.exists(out):
+            raise AssertionError(f"{mode}: rc {r.returncode}\n{r.stdout[-3000:]}\n"
+                                 f"{r.stderr[-6000:]}")
+        return json.loads(Path(out).read_text())
+
+
+def _same_depth_step_ms(torch, cfg) -> dict:
+    """Mean warm step ms of the plain loop and of the threads runtime (2
+    gradient tasks) at ``cfg``'s depth, at the procs phase's shape and
+    steps: its step's yardsticks in this call, at its own depth."""
+    from repro_torch.train import orchestrator
+    from repro_torch.train.loop import train
+    out = {}
+    for path in ("loop", "threads"):
+        stamps = []
+        on_step = lambda step, loss: stamps.append(time.perf_counter())
+        if path == "loop":
+            train(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=PROCS_STEPS,
+                  seed=0, device="cuda", on_step=on_step)
+        else:
+            orchestrator.run_myrmics_training(
+                cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=PROCS_STEPS,
+                n_shards=MYRMICS_SHARDS, seed=0, backend="threads", device="cuda",
+                on_step=on_step)
+        torch.cuda.synchronize()
+        step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+        out[path] = sum(step_ms) / len(step_ms)
+    return out
+
+
+def phase_train_myrmics_procs(torch, get_config, counters) -> dict:
+    """qwen2-0.5B at full width (bf16, ``PROCS_LAYERS`` layers) trained
+    under the runtime on the procs backend: the gradient and update
+    tasks in 2 spawned worker processes, every object shipped over the
+    wire by its footprint.  The host is a fresh process that touches no
+    CUDA; the workers log their launches (``_log_child_launches``).
+    Its step is held beside the loop's and the threads runtime's at the
+    same depth, run in this process after it.  Returns the workers'
+    launch counts."""
+    import tempfile
+    from repro_torch.train import orchestrator
+    cfg = replace(get_config(ARCH), n_layers=PROCS_LAYERS)
+    torch.cuda.empty_cache()        # the workers are other processes on the same card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launches_") as logs:
+        res = _run_host("--procs-train", PROCS_TIMEOUT_S, {CHILD_LOG_ENV: logs})
+        launches, device_peaks = _child_launches(logs)
+    _, sim_rep = orchestrator.run_myrmics_training(
+        cfg.smoke(), seq_len=16, global_batch=TRAIN_BATCH, steps=PROCS_STEPS,
+        n_shards=MYRMICS_SHARDS, backend="sim", device="cpu")
+    same_depth = _same_depth_step_ms(torch, cfg)
+    n_layers, tasks = cfg.n_layers, PROCS_STEPS * MYRMICS_SHARDS
+    want = {**dict.fromkeys(counters, 0), "flash_attention_fwd": 2 * n_layers * tasks,
+            "flash_attention_bwd": n_layers * tasks}
+    losses, ln_vocab = res["losses"], math.log(cfg.padded_vocab)
+    worker_pids = sorted(str(st["pid"]) for st in res["proc_report"].values())
+    n_before = len(res["compute_apps_before"])
+    n_during = max((len(p) for p in res["compute_apps_during"]), default=0)
+    mean_ms = sum(res["step_ms"]) / len(res["step_ms"])
+    traffic = res["traffic_by_task"]
+    problems = []
+    if launches != want:
+        problems.append(f"worker launches {launches}, want {want}")
+    if any(res["host_launches"].values()):
+        problems.append(f"the host launched kernels: {res['host_launches']}")
+    if not set(device_peaks) <= set(worker_pids):
+        problems.append(f"launch logs of {sorted(device_peaks)}, workers {worker_pids}")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != PROCS_STEPS:
+        problems.append(f"losses {losses}")
+    elif abs(losses[0] - ln_vocab) > 0.5:
+        problems.append(f"first loss {losses[0]} is not near ln(vocab) {ln_vocab}")
+    if not res["tasks_done"] == res["tasks_spawned"] == sim_rep.tasks_done:
+        problems.append(f"tasks: procs {res['tasks_done']} done of {res['tasks_spawned']}, "
+                        f"sim {sim_rep.tasks_done}")
+    if res["host_cuda_initialized"]:
+        problems.append("the host set up a CUDA context")
+    # nvidia-smi names processes by pids of another namespace here, so the
+    # check counts them: this process's context, then one per worker
+    if n_during != n_before + MYRMICS_SHARDS:
+        problems.append(f"compute apps: {n_before} before the run, at most {n_during} during it, "
+                        f"want {n_before + MYRMICS_SHARDS}")
+    per_step = {k: v["bytes"] / PROCS_STEPS for k, v in traffic.items()}
+    emit({"phase": "train_myrmics_procs", "arch": ARCH, "n_layers": n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.param_dtype, "seq_len": TRAIN_SEQ,
+          "global_batch": TRAIN_BATCH, "n_shards": MYRMICS_SHARDS, "steps": PROCS_STEPS,
+          "backend": "procs", "losses": losses, "ln_padded_vocab": ln_vocab,
+          "step_ms": res["step_ms"], "mean_step_ms": mean_ms,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3,
+          # the loop and the threads runtime at this depth, in this process
+          "loop_mean_step_ms": same_depth["loop"],
+          "threads_mean_step_ms": same_depth["threads"],
+          "step_ms_over_loop": mean_ms / same_depth["loop"],
+          "step_ms_over_threads": mean_ms / same_depth["threads"],
+          "wall_s": res["wall_s"], "runtime_wall_s": res["runtime_wall_s"],
+          "stamps": res["stamps"], "launches": launches, "launches_wanted": want,
+          "host_launches": res["host_launches"], "tasks_spawned": res["tasks_spawned"],
+          "tasks_done": res["tasks_done"], "sim_tasks_done": sim_rep.tasks_done,
+          "tasks_by_worker": res["tasks_by_worker"], "proc_report": res["proc_report"],
+          "wire_total_bytes": res["wire"]["total_bytes"],
+          "wire_bytes_per_step": res["wire"]["total_bytes"] / PROCS_STEPS,
+          "wire_per_kind": res["wire"]["per_kind"], "traffic_by_task": traffic,
+          "bytes_per_step_by_task": per_step,
+          "worker_peak_device_gb_at_last_launch": {k: v / 1e9 for k, v in device_peaks.items()},
+          "host_peak_rss_gb": res["host_peak_rss_gb"],
+          "workers_peak_rss_gb": res["workers_peak_rss_gb"],
+          "machine_min_available_gb": res["host_min_available_gb"],
+          "host_cuda_initialized": res["host_cuda_initialized"],
+          "compute_apps_before": res["compute_apps_before"],
+          "compute_apps_max_during": n_during,
+          "compute_apps_during_last": res["compute_apps_during"][-3:],
+          "ok": not problems})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
+
+
+def _probe_cuda(c, out):
+    """A task body: the first CUDA operation of its worker process, timed."""
+    import torch
+    t = time.time()
+    value = float(torch.ones(4, device="cuda").sum().item())
+    c.write(out, [value, t, time.time(), os.getpid()])
+
+
+def _start_probe_app(ctx, root):
+    from repro_torch.core import InOut, Out
+    started = ctx.alloc(8, root, label="main_started")
+    ctx.write(started, time.time())
+    for o in ctx.balloc(8, root, 2, label="probe"):
+        ctx.spawn(_probe_cuda, [Out(o)])
+    yield ctx.wait([InOut(root)])
+
+
+def procs_start_host(out_path: str) -> None:
+    """The host of ``procs_start``, a process of its own: a 2-worker procs
+    run whose tasks each make a CUDA call, with the workers forked (forced)
+    from this process while it has set up no CUDA, then spawned (the
+    port's rule), then forked after ``torch.cuda.is_available()``.  Writes
+    each case's seconds and outcome to ``out_path``."""
+    import torch
+    from repro_torch.core import Myrmics, backend_procs
+    result = {}
+    for case in ("fork", "spawn", "fork_after_is_available"):
+        if case == "fork_after_is_available":
+            result["is_available"] = torch.cuda.is_available()
+            result["is_initialized_after_is_available"] = torch.cuda.is_initialized()
+        backend_procs.START_METHOD = "spawn" if case == "spawn" else "fork"
+        rt = Myrmics(n_workers=2, sched_levels=[1], backend="procs", max_wall_s=120.0)
+        t0 = time.time()
+        try:
+            rt.run(_start_probe_app)
+        except Exception as e:      # the last case must fail: its outcome is the reading
+            result[case] = {"ok": False, "run_s": time.time() - t0,
+                            "error": f"{type(e).__name__}: {e}"[:400]}
+            continue
+        store = rt.labelled_storage()
+        probes = [store[f"probe[{i}]"] for i in range(2)]
+        result[case] = {"ok": all(p[0] == 4.0 for p in probes), "run_s": time.time() - t0,
+                        "first_body_s": store["main_started"] - t0,
+                        "first_cuda_call_s": [p[2] - p[1] for p in probes],
+                        "probe_done_s": [p[2] - t0 for p in probes]}
+    result["host_cuda_initialized"] = torch.cuda.is_initialized()
+    Path(out_path).write_text(json.dumps(result))
+
+
+def phase_procs_start(torch) -> None:
+    """How the procs backend's worker processes start: forked and spawned
+    from a host that has set up no CUDA, and forked after
+    ``torch.cuda.is_available()``, which must fail the run (its workers
+    cannot use the card; the port therefore always spawns)."""
+    res = _run_host("--procs-start", 300)
+    ok = (res["fork"]["ok"] and res["spawn"]["ok"]
+          and not res["fork_after_is_available"]["ok"]
+          and "CUDA" in res["fork_after_is_available"]["error"]
+          and not res["is_initialized_after_is_available"])
+    emit({"phase": "procs_start", **res, "ok": ok})
+    if not ok:
+        raise AssertionError(f"procs start: {res}")
+
+
+def _cold_build_child(build_root: str, queue) -> None:
+    """One of two processes started together on an empty build directory:
+    build and load the kernels there, launch the forward once on the card
+    and compare it with its plain version."""
+    try:
+        import torch
+        from repro_torch.kernels import _build
+        from repro_torch.kernels import flash_attention as fa
+        _build.BUILD_ROOT = Path(build_root)
+        t0 = time.perf_counter()
+        _build.library()
+        build_s = time.perf_counter() - t0
+        gen = torch.Generator(device="cuda").manual_seed(os.getpid())
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for shape in ((1, 64, 4, 64), (1, 64, 2, 64), (1, 64, 2, 64)))
+        err = max_err(fa.flash_attention(q, k, v, causal=True),
+                      fa.flash_attention_plain(q, k, v, True)[0])
+        with open("/proc/self/maps") as f:
+            fields = next(line for line in f if "libkernels" in line).split(maxsplit=5)
+        # " (deleted)": the other process replaced the file after this one
+        # mapped it; the mapping stays valid
+        path = fields[5].strip()
+        queue.put({"pid": os.getpid(), "library": path.removesuffix(" (deleted)"),
+                   "replaced_after_load": path.endswith(" (deleted)"),
+                   "inode": int(fields[4]), "build_s": build_s, "max_abs_err": err})
+    except BaseException as e:
+        queue.put({"pid": os.getpid(), "error": f"{type(e).__name__}: {e}"[-1500:]})
+
+
+def start_cold_build():
+    """Start the two cold-build processes (spawned; they build while this
+    process builds the library the other phases use)."""
+    import multiprocessing
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_cold_build_")
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_cold_build_child, args=(root, queue)) for _ in range(2)]
+    for p in procs:
+        p.start()
+    return root, queue, procs
+
+
+def phase_procs_cold_build(cold) -> None:
+    """Two processes that start together on a cold build directory both
+    load the one library path and launch a correct kernel."""
+    import shutil
+    root, queue, procs = cold
+    try:
+        got = [queue.get(timeout=600) for _ in procs]
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    ok = (all("error" not in g and g["max_abs_err"] <= TOL["bfloat16"] for g in got)
+          and len({g.get("library") for g in got}) == 1)
+    emit({"phase": "procs_cold_build", "children": got,
+          "libraries": sorted({str(g.get("library")).removeprefix(root) for g in got}),
+          "tol": TOL["bfloat16"], "ok": ok})
+    if not ok:
+        raise AssertionError(f"cold build: {got}")
 
 
 def _run_launcher(cmd: list[str]) -> tuple[int, list[tuple[float, str]]]:
@@ -1037,6 +1627,10 @@ def phase_examples(torch) -> None:
             # the training example under the Myrmics runtime, at its defaults
             "train_example_threads": ([sys.executable, "-u", "examples/train_lm_torch.py",
                                        "--backend", "threads", "--shards", "2"], None),
+            # and in worker processes, on the smoke config
+            "train_example_procs": ([sys.executable, "-u", "examples/train_lm_torch.py",
+                                     "--backend", "procs", "--shards", "2", "--arch", ARCH,
+                                     "--smoke", "--steps", str(EXAMPLE_STEPS)], None),
         }
         results, problems = {}, []
         for name, (cmd, n_requests) in runs.items():
@@ -1053,7 +1647,8 @@ def phase_examples(torch) -> None:
                                            or stats[0]["completed"] != n_requests):
                 problems.append(f"{name}: stats {stats}, want {n_requests} completed")
             if n_requests is None and not any(line.startswith(("done: first loss",
-                                                               "done (threads backend"))
+                                                               "done (threads backend",
+                                                               "done (procs backend"))
                                               for _, line in lines):
                 problems.append(f"{name}: no 'done' line")
     emit({"phase": "examples", "head_dim": 16, "runs": results, "ok": not problems})
@@ -1080,6 +1675,7 @@ def main() -> int:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    cold = start_cold_build()       # two processes building into an empty directory meanwhile
     t0 = time.perf_counter()
     lib = _build.build()
     _build.library()
@@ -1094,6 +1690,7 @@ def main() -> int:
               if any(w in line for w in ("entry function", "spill", "registers"))],
           "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                          "cudnn": torch.backends.cudnn.allow_tf32}})
+    phase_procs_cold_build(cold)
 
     counters = {"flash_attention_fwd": fa.flash_attention,
                 "decode_attention": dec.decode_attention,
@@ -1135,7 +1732,11 @@ def main() -> int:
     runs.append(train_launches)
     phase_train_parity(torch, get_config, LM)
     runs.append(phase_train_myrmics(torch, get_config, counters, train_step_ms))
-    phase_train_myrmics_parity(torch, get_config, LM)
+    threads_run = phase_train_myrmics_parity(torch, get_config, LM)
+    runs.append(phase_train_myrmics_procs(torch, get_config, counters))
+    phase_procs_start(torch)
+    clean = phase_train_myrmics_procs_parity(torch, get_config, LM, threads_run)
+    phase_faults_procs(torch, get_config, LM, clean)
     phase_launcher(torch)
     phase_serve_launcher(torch)
     phase_examples(torch)
@@ -1162,5 +1763,16 @@ def main() -> int:
     return 0
 
 
+# the hosts of the procs phases, each a process of its own
+HOSTS = {"--procs-train": procs_train_host, "--procs-start": procs_start_host}
+
+if __name__ == "__mp_main__" and os.environ.get(CHILD_LOG_ENV):
+    # a worker process spawned by the full-width procs run imports this
+    # file as its __mp_main__: log the kernels it launches
+    _log_child_launches(os.environ[CHILD_LOG_ENV])
+
 if __name__ == "__main__":
+    if len(sys.argv) >= 3 and sys.argv[1] in HOSTS:
+        HOSTS[sys.argv[1]](*sys.argv[2:])
+        sys.exit(0)
     sys.exit(main())

@@ -5,12 +5,16 @@ fault tolerance), the port's mirror of ``examples/train_lm.py``.
     PYTHONPATH=src python examples/train_lm_torch.py --steps 300     # ~20M params, GPU
     PYTHONPATH=src python examples/train_lm_torch.py --arch qwen2_0_5b --smoke --device cpu
     PYTHONPATH=src python examples/train_lm_torch.py --backend threads --shards 2
+    PYTHONPATH=src python examples/train_lm_torch.py --backend procs --shards 2 --arch qwen2_0_5b --steps 4 --seq-len 512 --batch 4
 
 Any ported architecture is selectable with --arch (reduced to its smoke
 config with --smoke; its full config otherwise).  ``--backend loop`` is
 the plain training loop; ``--backend threads`` schedules each step as a
 Myrmics task DAG (``--shards`` gradient tasks, then the update) on the
-runtime's concurrent executor.  ``--backend procs`` is not ported yet.
+runtime's concurrent executor; ``--backend procs`` runs the same DAG's
+tasks in spawned worker processes, every object (parameters, moments,
+gradients) shipped to them and back as CPU tensors each time a task
+needs it.
 """
 
 import argparse
@@ -47,9 +51,9 @@ def main() -> None:
     ap.add_argument("--backend", choices=("loop", "threads", "procs"), default="loop",
                     help="loop: the plain training loop; threads: schedule each "
                     "step as a Myrmics task DAG on the concurrent executor; "
-                    "procs: not ported yet")
+                    "procs: the same DAG in worker processes")
     ap.add_argument("--shards", type=int, default=4,
-                    help="data-parallel gradient shards (threads backend)")
+                    help="data-parallel gradient shards (threads and procs backends)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
 

@@ -433,9 +433,11 @@ class Myrmics:
             self.sub = ThreadSubstrate(self.hier, max_wall_s=max_wall_s)
             self.worker_agent = ThreadWorkerAgent(self)
         elif backend == "procs":
-            raise NotImplementedError(
-                "backend='procs' is not ported yet: ROADMAP.md Queue 1, 'Slice 5: "
-                "training of the dense family under the Myrmics runtime' (item 7b)")
+            from .backend_procs import ProcSubstrate, ProcWorkerAgent
+            self.sub = ProcSubstrate(self.hier, max_wall_s=max_wall_s)
+            self.worker_agent = ProcWorkerAgent(self)
+            self.sub.runtime = self
+            self.sub.agent = self.worker_agent
         else:
             self.sub = SimSubstrate(self.hier)
             self.worker_agent = WorkerAgent(self)
@@ -447,9 +449,9 @@ class Myrmics:
         # None when off — every recovery hook is gated on this attribute
         # so the faults=None hot paths stay byte-identical (§1.10)
         if faults is not None:
-            raise NotImplementedError(
-                "faults= is not ported yet: ROADMAP.md Queue 1, 'Slice 5: training "
-                "of the dense family under the Myrmics runtime' (item 11)")
+            from .faults import FaultInjector, normalize_faults
+            self.fault_plan = normalize_faults(faults)
+            self.fault_injector = FaultInjector(self, self.fault_plan)
         else:
             self.fault_plan = None
             self.fault_injector = None

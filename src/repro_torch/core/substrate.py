@@ -81,7 +81,9 @@ WIRE_KINDS = (
 _WIRE_KIND_INDEX = {k: i for i, k in enumerate(WIRE_KINDS)}
 _WIRE_KIND_RAW = 0xFF
 _WIRE_HEADER = struct.Struct(">2sBBdd")
-_WIRE_LEN = struct.Struct(">I")
+# 8-byte lengths: a 4-byte one caps a frame at 4 GiB, and a full-width
+# model's parameters and moments ship in one frame
+_WIRE_LEN = struct.Struct(">Q")
 
 
 class Message:

@@ -16,8 +16,15 @@ and are the JAX module's, line for line, on the port's copy of the
 runtime (``repro_torch.core``).  ``run_myrmics_training`` schedules the
 same task DAG as the JAX function; its gradient tasks run the port's
 loss and gradients (``train.steps._value_and_grad``) on the model's
-device, and its update task the port's AdamW.  ``backend="procs"``
-raises in the runtime: it is not ported yet.
+device, and its update task the port's AdamW.
+
+On ``backend="procs"`` the tasks run in worker processes and every
+object crosses the wire, so every object holds CPU tensors: the host
+draws the initial parameters and moments on the CPU, and each task
+moves its inputs to the device in its own body and writes CPU tensors
+back.  A CUDA tensor unpickled in the host would set up a CUDA context
+there; the backend refuses such a write.  On sim and threads the
+objects stay on the model's device.
 """
 
 from __future__ import annotations
@@ -35,6 +42,11 @@ from repro_torch.optim import AdamW
 from repro_torch.train.loop import TrainReport
 from repro_torch.train.steps import _value_and_grad
 from repro_torch.tree import leaves, tree_map
+
+
+def _on(device: torch.device, tree):
+    """``tree`` with every tensor on ``device`` (no copy where it is already)."""
+    return tree_map(lambda x: x.to(device), tree)
 
 
 @dataclass
@@ -132,8 +144,10 @@ def run_myrmics_training(model_cfg, *, seq_len: int = 64,
     every other Myrmics program.  On ``backend="threads"`` the gradient
     tasks run concurrently on the worker pool; their kernels share the
     device's current stream.  ``backend="sim"`` runs the same DAG
-    deterministically.  ``device``: None means the GPU (and raises
-    without CUDA); the CPU only when asked for.
+    deterministically.  On ``backend="procs"`` each task runs in a
+    worker process, and the objects hold CPU tensors (module
+    docstring).  ``device``: None means the GPU (and raises without
+    CUDA); the CPU only when asked for.
 
     Returns ``(TrainReport, RunReport)``.
     """
@@ -145,7 +159,9 @@ def run_myrmics_training(model_cfg, *, seq_len: int = 64,
                        total_steps=steps)
     data = TokenDataset(model_cfg, seq_len, global_batch, seed)
 
-    params0 = lm.init(seed)
+    # where the objects live: on procs the host sets up no CUDA context
+    home = torch.device("cpu") if backend == "procs" else lm.device
+    params0 = LM(model_cfg, home).init(seed)
     opt0 = opt.init(params0)
     param_bytes = int(sum(x.numel() * x.element_size() for x in leaves(params0)))
     per_shard = global_batch // n_shards
@@ -154,17 +170,18 @@ def run_myrmics_training(model_cfg, *, seq_len: int = 64,
     @task
     def grad_shard(ctx, g: Out, loss_o: Out, p: In, batch: Safe):
         b = {k: torch.from_numpy(v).to(lm.device) for k, v in batch.items()}
-        loss, grads = _value_and_grad(lm, p.read(), b, remat=True)
-        g.write(grads)
+        loss, grads = _value_and_grad(lm, _on(lm.device, p.read()), b, remat=True)
+        g.write(_on(home, grads))
         loss_o.write(float(loss))
 
     @task
     def apply_update(ctx, p: InOut, o: InOut, step_r: In, gs: Safe):
-        grads = [g.read() for g in gs]  # lint: allow(safe-ref-access: covered by step_r: In)
+        grads = [_on(lm.device, g.read()) for g in gs]  # lint: allow(safe-ref-access: covered by step_r: In)
         avg = tree_map(lambda *x: sum(x) / len(x), *grads)
-        params, opt_state, _ = opt.update(avg, o.read(), p.read())
-        p.write(params)
-        o.write(opt_state)
+        params, opt_state, _ = opt.update(avg, _on(lm.device, o.read()),
+                                          _on(lm.device, p.read()))
+        p.write(_on(home, params))
+        o.write(_on(home, opt_state))
 
     def main(ctx, root):
         nonlocal params0, opt0
@@ -179,6 +196,8 @@ def run_myrmics_training(model_cfg, *, seq_len: int = 64,
             step_r = ctx.ralloc(root, 1, label=f"step{step}")
             gs = ctx.balloc(param_bytes, step_r, n_shards,
                             label=f"g{step}")
+            # losses live under root (not the freed step region) so the
+            # host can rebuild the report when main ran out-of-process
             ls = ctx.balloc(8, root, n_shards, label=f"l{step}")
             batch = data.get_batch(step)
             for i in range(n_shards):
@@ -189,15 +208,32 @@ def run_myrmics_training(model_cfg, *, seq_len: int = 64,
             ctx.spawn(apply_update, p_obj, o_obj, step_r, list(gs),
                       name=f"upd{step}")
             yield ctx.wait([InOut(root)])
-            losses = [ctx.read(lo) for lo in ls]
-            report.losses.append(sum(losses) / len(losses))
-            report.steps_run += 1
-            if on_step is not None:
-                on_step(step, report.losses[-1])
+            if backend != "procs":
+                # on procs, main itself runs inside a worker process:
+                # these closure mutations (and on_step prints) would
+                # land in the wrong address space — the host rebuilds
+                # the report from written-back loss objects instead.
+                losses = [ctx.read(lo) for lo in ls]
+                report.losses.append(sum(losses) / len(losses))
+                report.steps_run += 1
+                if on_step is not None:
+                    on_step(step, report.losses[-1])
             ctx.rfree(step_r)
 
     rt = Myrmics(n_workers=n_shards, sched_levels=[1], backend=backend)
     run_rep = rt.run(main)
+    if backend == "procs" and steps:
+        # main's closure ran inside a worker process, so its report /
+        # on_step mutations never reached this address space — rebuild
+        # from the loss objects written back to the host object store
+        # (the l{step} batch lives under root).
+        stored = rt.labelled_storage()
+        for step in range(steps):
+            vals = [stored[f"l{step}[{i}]"] for i in range(n_shards)]
+            report.losses.append(sum(vals) / len(vals))
+            report.steps_run += 1
+            if on_step is not None:
+                on_step(step, report.losses[-1])
     return report, run_rep
 
 

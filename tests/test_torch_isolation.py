@@ -85,6 +85,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch, tm
     assert not (tmp_path / "ckpt").exists()      # raised before touching the disk
 
 
+def test_procs_training_without_cuda_raises_before_a_worker_starts(monkeypatch):
+    """``backend="procs"`` with no device and no CUDA raises like every
+    entry point, and no worker process is started first."""
+    from repro_torch.core.backend_procs import ProcSubstrate
+    started = []
+    monkeypatch.setattr(ProcSubstrate, "_start_children", lambda self: started.append(self))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_myrmics_training(get_config("qwen2_0_5b").smoke(), steps=1, backend="procs")
+    assert not started
+
+
 def test_cpu_only_when_asked():
     assert LM(get_config("qwen2_0_5b").smoke(), device="cpu").device.type == "cpu"
 

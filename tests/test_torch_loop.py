@@ -82,14 +82,12 @@ def test_train_example_runs_on_cpu(tmp_path):
     assert "done: first loss" in r.stdout
 
 
-def test_train_example_names_the_roadmap_slice_for_the_runtime_backends():
-    """``--backend procs`` is not ported yet; the runtime names its slice."""
-    r = _run_example("train_lm_torch.py", "--backend", "procs", "--arch", "qwen2_0_5b",
-                     "--smoke", "--device", "cpu", "--steps", "2", "--seq-len", "16",
-                     "--batch", "2", "--shards", "2")
-    assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr and "ROADMAP.md" in r.stderr
-    assert "Slice 5" in r.stderr
+def test_train_example_runs_on_the_procs_backend_on_cpu():
+    r = _run_example("train_lm_torch.py", "--backend", "procs", "--shards", "2",
+                     "--arch", "qwen2_0_5b", "--smoke", "--device", "cpu", "--steps", "20",
+                     "--seq-len", "32", "--batch", "4")
+    assert r.returncode == 0, r.stderr
+    assert "done (procs backend, 2 shards, 61 tasks" in r.stdout
 
 
 def test_train_example_runs_on_the_threads_backend_on_cpu():
@@ -98,6 +96,27 @@ def test_train_example_runs_on_the_threads_backend_on_cpu():
                      "--seq-len", "32", "--batch", "4")
     assert r.returncode == 0, r.stderr
     assert "done (threads backend, 2 shards, 61 tasks" in r.stdout
+
+
+@pytest.mark.parametrize("backend", ["sim", "procs"])
+def test_quickstart_twin_prints_what_the_original_prints(backend):
+    got = _run_example("quickstart_torch.py", "--backend", backend)
+    want = _run_example("quickstart.py", "--backend", backend)
+    assert got.returncode == 0 == want.returncode, got.stderr + want.stderr
+    if backend == "sim":
+        assert got.stdout == want.stdout
+    else:       # wall seconds differ
+        assert got.stdout.splitlines()[-1] == want.stdout.splitlines()[-1] \
+            == "parallel == serial: 1240"
+
+
+def test_scheduling_at_scale_twin_prints_what_the_original_prints():
+    """Virtual time: the port's runtime and ``locality_sweep`` print the
+    JAX example's numbers exactly."""
+    got = _run_example("scheduling_at_scale_torch.py")
+    want = _run_example("scheduling_at_scale.py")
+    assert got.returncode == 0 == want.returncode, got.stderr + want.stderr
+    assert got.stdout == want.stdout and "despite the failure" in got.stdout
 
 
 def test_serve_example_runs_on_cpu():

@@ -1,8 +1,8 @@
 """The port's ``train.orchestrator`` against the JAX package's, on the
 CPU: Myrmics-scheduled training of the qwen2-0.5B smoke config (f32, the
 JAX init carried across as numpy) step by step against
-``repro.train.orchestrator.run_myrmics_training``, the port's sim and
-threads backends bit for bit, and the virtual schedules of
+``repro.train.orchestrator.run_myrmics_training``, the port's sim,
+threads and procs backends bit for bit, and the virtual schedules of
 ``run_training_schedule`` and ``locality_sweep`` exactly."""
 
 import dataclasses
@@ -162,8 +162,27 @@ def test_global_batch_must_split_into_shards():
                                   n_shards=2, device="cpu")
 
 
-def test_procs_names_the_roadmap_slice():
-    cfg = get_config("qwen2_0_5b").smoke()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md .*Slice 5"):
-        orch.run_myrmics_training(cfg, seq_len=16, global_batch=2, steps=1,
-                                  backend="procs", device="cpu")
+def test_procs_matches_sim_and_holds_cpu_tensors(monkeypatch):
+    """``backend="procs"``: the same 3 steps in 2 spawned worker
+    processes give the sim run's losses and final parameters bit for bit
+    (the same CPU kernels; a trip through pickle changes no bit), and
+    every tensor the host's object store holds is on the CPU."""
+    sim_losses, sim_params, sim_rep = _port_run(monkeypatch, "sim")
+    losses, params, rep = _port_run(monkeypatch, "procs")
+    assert rep.backend == "procs"
+    assert rep.tasks_done == rep.tasks_spawned == sim_rep.tasks_done
+    assert losses == sim_losses
+    assert set(params) == set(sim_params)
+    assert all(torch.equal(params[k], sim_params[k]) for k in sim_params)
+    assert rep.wire_summary()["total_bytes"] > 0
+
+
+def test_procs_objects_are_cpu_tensors(monkeypatch):
+    seen = _recording(orch, monkeypatch)
+    orch.run_myrmics_training(get_config("qwen2_0_5b").smoke(), seq_len=16, global_batch=4,
+                              steps=2, n_shards=2, backend="procs", device="cpu")
+    stored = seen[0].labelled_storage()
+    tensors = [x for k in ("params", "opt") for x in leaves(stored[k])]
+    assert tensors and all(isinstance(x, torch.Tensor) and x.device.type == "cpu"
+                           for x in tensors)
+    assert all(isinstance(stored[f"l{s}[{i}]"], float) for s in range(2) for i in range(2))
